@@ -1,0 +1,626 @@
+"""Streaming ingest with query-while-ingest (paper §5, Fig. 4).
+
+Focus's deployment shape is a fleet of cameras ingested *continuously*
+while "after the fact" queries arrive mid-stream. ``StreamingIngestor``
+accepts chunked ``(crops, frames)`` feeds for one stream and maintains
+clustering state + the top-K index incrementally across calls — carrying
+``slot_cid``, pixel-track roots, and eviction remaps over chunk
+boundaries.
+
+Determinism contract: chunk boundaries are invisible. Unique objects are
+buffered and cut into CNN batches of exactly ``cfg.batch_size``, so the
+batch partition — and with it the clustering fold order, slot -> cid
+assignment, and eviction points — is a function of the concatenated
+stream only. Pixel-diff duplicates go to the index's separate attach log,
+canonicalized at read/save time, so *when* the ingestor flushed them is
+equally invisible. One-shot ``ingest()`` is the single-chunk special
+case, and a chunked run saves byte-identically to it.
+
+Freshness model for query-while-ingest: ``feed`` folds every complete
+batch immediately; ``flush`` attaches the pixel-diff duplicates whose
+root's batch has folded and publishes an ``IngestDelta`` naming the
+new/moved clusters, which is exactly what a ``QueryEngine`` needs to
+``prefetch`` so warm queries between chunks stay off the GT-CNN path.
+
+Pixel differencing and clustering run on the ingestor's ``device``.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.core import clustering as C
+from repro_torch.core.index import ClassMap, TopKIndex
+from repro_torch.core.ingest import IngestConfig, IngestStats
+from repro_torch.data.bgsub import match_flat, pixel_difference
+
+
+@dataclass
+class IngestDelta:
+    """What one ``flush()`` made newly visible to queries."""
+    n_objects_published: int         # uniques folded + duplicates attached
+    new_cids: List[int]              # clusters created since the last flush
+    touched_cids: List[int]          # clusters whose centroid moved
+                                     # (sorted, includes the new ones)
+    n_evictions: int
+    n_pending_unique: int            # buffered, awaiting a full CNN batch
+    n_pending_dups: int              # awaiting their root's batch
+
+
+class _PixelTracker:
+    """Streaming §4.2 pixel differencing.
+
+    Mirrors ``ingest.pixel_tracks`` exactly, but over an unbounded stream:
+    a frame group may arrive split across chunks (the *open* frame keeps
+    accepting members until a later frame appears), while the previous
+    frame's completed group — crops and resolved root ids — is retained
+    for matching. Requires frames to arrive in non-decreasing order.
+    """
+
+    def __init__(self, threshold: float, device: DeviceLike = "cuda"):
+        self.threshold = threshold
+        self.device = device
+        self._open_frame: Optional[int] = None
+        self._open_crops: List[np.ndarray] = []
+        self._open_roots: List[np.ndarray] = []
+        self._prev_frame: Optional[int] = None
+        self._prev_crops: Optional[np.ndarray] = None
+        self._prev_roots: Optional[np.ndarray] = None
+
+    def resolve(self, f: int, crops: np.ndarray,
+                obj_ids: np.ndarray) -> np.ndarray:
+        """Root object ids for one (possibly partial) frame-``f`` group."""
+        if self._open_frame is not None and f < self._open_frame:
+            raise ValueError(
+                f"frames must be non-decreasing across feeds: got frame {f} "
+                f"after frame {self._open_frame}")
+        if self._open_frame is None or f > self._open_frame:
+            if self._open_crops:
+                self._prev_frame = self._open_frame
+                self._prev_crops = np.concatenate(self._open_crops)
+                self._prev_roots = np.concatenate(self._open_roots)
+            self._open_frame = f
+            self._open_crops, self._open_roots = [], []
+        roots = obj_ids.copy()
+        if self._prev_frame == f - 1 and self._prev_crops is not None \
+                and len(self._prev_crops):
+            match = pixel_difference(crops, self._prev_crops, self.threshold,
+                                     device=self.device)
+            m = match >= 0
+            roots[m] = self._prev_roots[match[m]]
+        self._open_crops.append(crops)
+        self._open_roots.append(roots)
+        return roots
+
+    def amend_last(self, roots: np.ndarray):
+        """Replace the roots of the most recent ``resolve`` segment.
+
+        The redundancy gate rewrites roots *after* the tracker resolved a
+        group; the tracker must see the rewrite, or a next-frame tracker
+        match would chain to the crop's own (never-CNN'd, never-folded)
+        id and its duplicate record could never attach.
+        """
+        self._open_roots[-1] = np.asarray(roots, np.int64)
+
+
+class _RedundancyGate:
+    """Cross-frame redundancy gate in front of the CNN.
+
+    The §4.2 tracker only matches consecutive frames; on a static camera
+    the same object re-surfaces for minutes. This gate keeps a bounded
+    FIFO ring of the most recent *CNN-bound* unique crops (flattened)
+    with their root ids; a new crop matching a ring entry (mean abs diff
+    STRICTLY below ``threshold``, via ``bgsub.match_flat`` — the
+    ``pixel_match`` kernel on the card) skips the CNN and attaches to the
+    ring root's cluster through the duplicate/attach log.
+
+    Chunk invariance: matching only sees entries from strictly earlier
+    frames — a frame's own uniques are queued and admitted to the ring
+    when the frame *closes* (a later frame arrives), mirroring the
+    tracker's open/prev machinery, so a frame group split across chunks
+    gates identically to an unsplit feed.
+    """
+
+    def __init__(self, threshold: float, capacity: int,
+                 device: DeviceLike = "cuda"):
+        if capacity < 1:
+            raise ValueError(f"gate_capacity must be >= 1, got {capacity}")
+        self.threshold = threshold
+        self.capacity = capacity
+        self.device = device
+        self._ring_crops: List[np.ndarray] = []    # per-frame (k, D) groups
+        self._ring_roots: List[np.ndarray] = []
+        self._n = 0
+        self._open_frame: Optional[int] = None
+        self._open_crops: List[np.ndarray] = []
+        self._open_roots: List[np.ndarray] = []
+
+    def match(self, f: int, crops2d: np.ndarray) -> np.ndarray:
+        """Ring root id per crop (or -1) for one frame-``f`` segment.
+        Also advances the open-frame bookkeeping, so call it once per
+        resolved segment even when ``crops2d`` is empty."""
+        if self._open_frame is None or f > self._open_frame:
+            if self._open_crops:
+                self._push(np.concatenate(self._open_crops),
+                           np.concatenate(self._open_roots))
+                self._open_crops, self._open_roots = [], []
+            self._open_frame = f
+        out = np.full((len(crops2d),), -1, np.int64)
+        if self._n == 0 or len(crops2d) == 0:
+            return out
+        m = match_flat(crops2d, np.concatenate(self._ring_crops),
+                       self.threshold, device=self.device)
+        hit = m >= 0
+        if hit.any():
+            roots = np.concatenate(self._ring_roots)
+            out[hit] = roots[m[hit]]
+        return out
+
+    def admit(self, crops2d: np.ndarray, roots: np.ndarray):
+        """Queue frame-``f`` CNN-bound uniques (f = the frame of the last
+        ``match`` call); they join the ring when the frame closes."""
+        if len(crops2d):
+            self._open_crops.append(crops2d)
+            self._open_roots.append(np.asarray(roots, np.int64))
+
+    def _push(self, crops: np.ndarray, roots: np.ndarray):
+        self._ring_crops.append(crops)
+        self._ring_roots.append(roots)
+        self._n += len(roots)
+        # trim whole frame groups while the remainder still covers the
+        # capacity: ring size stays in [capacity, capacity + group)
+        while len(self._ring_roots) > 1 \
+                and self._n - len(self._ring_roots[0]) >= self.capacity:
+            self._n -= len(self._ring_roots[0])
+            self._ring_crops.pop(0)
+            self._ring_roots.pop(0)
+
+    def live_roots(self) -> set:
+        """Root ids a future gate match may still return (ring + open) —
+        their ``_root_cid`` entries must survive pruning."""
+        keep: set = set()
+        for seg in self._ring_roots:
+            keep.update(seg.tolist())
+        for seg in self._open_roots:
+            keep.update(seg.tolist())
+        return keep
+
+
+class _ChunkBuffer:
+    """Unique-object buffer as a list of chunks: appends are O(1) and
+    ``take`` concatenates only the rows taken. ``take`` on an empty buffer
+    returns correctly-shaped empties."""
+
+    def __init__(self):
+        self._crops: List[np.ndarray] = []
+        self._objs: List[np.ndarray] = []
+        self._frames: List[np.ndarray] = []
+        self._n = 0
+        self._crop_shape: Optional[tuple] = None
+        self._dtype = np.float32
+
+    def __len__(self) -> int:
+        return self._n
+
+    def append(self, crops: np.ndarray, objs: np.ndarray,
+               frames: np.ndarray):
+        if self._crop_shape is None and crops.ndim > 1:
+            self._crop_shape = crops.shape[1:]
+            self._dtype = crops.dtype
+        if len(objs) == 0:
+            return
+        self._crops.append(crops)
+        self._objs.append(np.asarray(objs, np.int64))
+        self._frames.append(np.asarray(frames, np.int64))
+        self._n += len(objs)
+
+    def _empty(self):
+        shape = (0,) + (self._crop_shape if self._crop_shape is not None
+                        else (0, 0, 3))
+        return (np.zeros(shape, self._dtype), np.zeros((0,), np.int64),
+                np.zeros((0,), np.int64))
+
+    def take(self, k: int):
+        """Pop the first ``k`` rows (all rows if ``k`` exceeds the
+        buffer)."""
+        if k <= 0 or self._n == 0:
+            return self._empty()
+        k = min(k, self._n)
+        crops, objs, frames, got = [], [], [], 0
+        while got < k:
+            c, o, f = self._crops[0], self._objs[0], self._frames[0]
+            need = k - got
+            if len(o) <= need:
+                self._crops.pop(0)
+                self._objs.pop(0)
+                self._frames.pop(0)
+            else:
+                self._crops[0] = c[need:]
+                self._objs[0] = o[need:]
+                self._frames[0] = f[need:]
+                c, o, f = c[:need], o[:need], f[:need]
+            crops.append(c)
+            objs.append(o)
+            frames.append(f)
+            got += len(o)
+        self._n -= k
+        if len(objs) == 1:
+            return crops[0], objs[0], frames[0]
+        return (np.concatenate(crops), np.concatenate(objs),
+                np.concatenate(frames))
+
+
+class StreamingIngestor:
+    """Incremental Focus ingest for one stream, fed in chunks.
+
+    ``cheap_apply(crops (B,R,R,3)) -> (probs (B, C_local), feats (B, D))``
+    returns numpy arrays. ``feed`` / ``flush`` / ``finish`` are the
+    lifecycle; ``ingest()`` in ``core.ingest`` is the single-chunk
+    wrapper. Pixel differencing and clustering run on ``device``.
+    """
+
+    def __init__(self, cheap_apply: Callable,
+                 cheap_flops_per_image: float = 0.0,
+                 cfg: Optional[IngestConfig] = None,
+                 class_map: Optional[ClassMap] = None,
+                 n_local_classes: Optional[int] = None,
+                 device: DeviceLike = "cuda"):
+        self.cheap_apply = cheap_apply
+        self.cheap_flops_per_image = cheap_flops_per_image
+        self.cfg = cfg if cfg is not None else IngestConfig()
+        self.class_map = class_map
+        self.n_local_classes = n_local_classes
+        self.device = resolve_device(device)
+        self.stats = IngestStats()
+        try:
+            self._cluster_fn = C.CLUSTER_FNS[self.cfg.clustering]
+        except KeyError:
+            raise ValueError(
+                f"unknown clustering variant {self.cfg.clustering!r}; "
+                f"expected one of {sorted(C.CLUSTER_FNS)}") from None
+        if self.cfg.frame_stride < 1:
+            raise ValueError(
+                f"frame_stride must be >= 1: {self.cfg.frame_stride}")
+        # the index exists up front whenever the class width is known, so a
+        # QueryEngine can bind to it before the first chunk arrives
+        self._index: Optional[TopKIndex] = None
+        if n_local_classes is not None or class_map is not None:
+            nl = (n_local_classes if n_local_classes is not None
+                  else class_map.n_local)
+            self._index = TopKIndex(self.cfg.K, nl, class_map)
+        self._state = None                      # lazy: dims from first batch
+        self._slot_cid = np.full(self.cfg.max_clusters, -1, np.int64)
+        self._next_cid = 0
+        self._tracker = _PixelTracker(self.cfg.pixel_diff_threshold,
+                                      self.device)
+        self._gate = (_RedundancyGate(self.cfg.gate_threshold,
+                                      self.cfg.gate_capacity, self.device)
+                      if self.cfg.gate else None)
+        # unique-object buffer, awaiting a full CNN batch
+        self._buf = _ChunkBuffer()
+        # pixel-diff duplicates awaiting their root's batch
+        self._dup_objs: List[np.ndarray] = []
+        self._dup_frames: List[np.ndarray] = []
+        self._dup_roots: List[np.ndarray] = []
+        self._root_cid: Dict[int, int] = {}     # folded unique obj -> cid
+        self._obj_next = 0       # next default object id (kept objects)
+        self._max_frame: Optional[int] = None
+        self._finished = False
+        # delta accounting between flushes
+        self._delta_new: List[int] = []
+        self._delta_touched: set = set()
+        self._delta_evictions = 0
+        self._delta_published = 0
+
+    # -- queryable state -------------------------------------------------------
+
+    @property
+    def index(self) -> Optional[TopKIndex]:
+        """The live index (None until the class width is known)."""
+        return self._index
+
+    @property
+    def n_ready_batches(self) -> int:
+        return len(self._buf) // self.cfg.batch_size
+
+    @property
+    def n_pending_unique(self) -> int:
+        return len(self._buf)
+
+    @property
+    def n_pending_dups(self) -> int:
+        return int(sum(len(a) for a in self._dup_objs))
+
+    # -- feeding ---------------------------------------------------------------
+
+    def feed(self, crops: np.ndarray, frames: np.ndarray,
+             obj_ids: Optional[np.ndarray] = None):
+        """Ingest one chunk. Frames must be non-decreasing across feeds
+        (chunks may split a frame's objects; the open frame keeps
+        accepting members). ``obj_ids`` defaults to arrival positions in
+        the concatenated stream (counting kept objects only), exactly the
+        ids a one-shot ``ingest()`` assigns. A rejected chunk mutates nothing: validation runs before
+        any stats or object-id state is touched.
+        """
+        if self._finished:
+            raise RuntimeError("feed() after finish()")
+        crops = np.asarray(crops)
+        frames = np.asarray(frames, np.int64)
+        n = len(crops)
+        arr_pos = None
+        if obj_ids is not None:
+            obj_ids = np.asarray(obj_ids, np.int64)
+        if n:
+            order = np.argsort(frames, kind="stable")
+            crops, frames = crops[order], frames[order]
+            if obj_ids is not None:
+                obj_ids = obj_ids[order]
+            else:
+                arr_pos = order          # chunk-arrival position per slot
+            # the contract holds with or without pixel differencing: an
+            # out-of-order chunk would silently move the CNN batch
+            # partition away from the one-shot run's
+            if self._max_frame is not None and frames[0] < self._max_frame:
+                raise ValueError(
+                    f"frames must be non-decreasing across feeds: got "
+                    f"frame {int(frames[0])} after frame {self._max_frame}")
+        if n == 0:
+            return
+        self._max_frame = int(frames[-1])
+        if self.cfg.frame_stride > 1:
+            # absolute sampling grid: frame f is kept iff f % stride == 0,
+            # a function of the stream alone — dropped objects behave as
+            # if never detected (no ids, no stats beyond n_sampled_out)
+            keep = frames % self.cfg.frame_stride == 0
+            self.stats.n_sampled_out += n - int(keep.sum())
+            crops, frames = crops[keep], frames[keep]
+            if obj_ids is not None:
+                obj_ids = obj_ids[keep]
+            else:
+                arr_pos = arr_pos[keep]
+            n = len(crops)
+        self.stats.n_objects += n
+        if n == 0:
+            return
+        if obj_ids is None:
+            # rank the kept objects by chunk-arrival position: ids follow
+            # arrival order even when the chunk was internally unsorted,
+            # matching what a one-shot ingest assigns
+            ranks = np.argsort(np.argsort(arr_pos, kind="stable"),
+                               kind="stable")
+            obj_ids = self._obj_next + ranks.astype(np.int64)
+        self._obj_next += n
+        self._ingest_chunk(crops, frames, obj_ids)
+
+    def _ingest_chunk(self, crops: np.ndarray, frames: np.ndarray,
+                      obj_ids: np.ndarray):
+        """Pixel-diff + buffer one frame-sorted chunk, folding every
+        completed CNN batch."""
+        t0 = time.perf_counter()
+        n = len(crops)
+        if self.cfg.pixel_diff or self._gate is not None:
+            i = 0
+            while i < n:
+                f = int(frames[i])
+                j = i
+                while j < n and frames[j] == f:
+                    j += 1
+                ids = obj_ids[i:j]
+                if self.cfg.pixel_diff:
+                    roots = self._tracker.resolve(f, crops[i:j], ids)
+                    self.stats.n_pixel_dedup += int((roots != ids).sum())
+                else:
+                    roots = ids.copy()
+                if self._gate is not None:
+                    roots = self._gate_segment(f, crops[i:j], ids, roots)
+                uniq = roots == ids
+                self._buf.append(crops[i:j][uniq], ids[uniq],
+                                 frames[i:j][uniq])
+                if not uniq.all():
+                    dup = ~uniq
+                    self._dup_objs.append(ids[dup])
+                    self._dup_frames.append(frames[i:j][dup])
+                    self._dup_roots.append(roots[dup])
+                i = j
+        else:
+            self._buf.append(crops, obj_ids, frames)
+        self.stats.wall_s += time.perf_counter() - t0
+        self._drain_ready()
+
+    def _gate_segment(self, f: int, crops: np.ndarray, ids: np.ndarray,
+                      roots: np.ndarray) -> np.ndarray:
+        """Run one frame-``f`` segment's tracker-unique crops through the
+        redundancy gate; returns the (possibly rewritten) roots. Gate
+        hits become duplicates rooted at a ring entry (a CNN-bound
+        object), misses are admitted as future ring entries."""
+        uniq = roots == ids
+        flat = crops[uniq].reshape(int(uniq.sum()),
+                                   int(np.prod(crops.shape[1:])))
+        groots = self._gate.match(f, flat)
+        hit = groots >= 0
+        if hit.any():
+            roots = roots.copy()
+            roots[np.nonzero(uniq)[0][hit]] = groots[hit]
+            self.stats.n_gate_skipped += int(hit.sum())
+            if self.cfg.pixel_diff:
+                # the tracker must see the rewritten roots, else a
+                # next-frame tracker match chains to a never-folded id
+                self._tracker.amend_last(roots)
+        self._gate.admit(flat[~hit], ids[uniq][~hit])
+        return roots
+
+    def _drain_ready(self):
+        b = self.cfg.batch_size
+        while self.n_ready_batches:
+            self._fold_crops(*self._buf.take(b))
+
+    def _fold_crops(self, crops, objs, frames):
+        t0 = time.perf_counter()
+        probs, feats = self.cheap_apply(crops)
+        self.stats.wall_s += time.perf_counter() - t0
+        self.fold_batch(crops, objs, frames, probs, feats)
+
+    # -- the chunk-step --------------------------------------------------------
+
+    def fold_batch(self, crops: np.ndarray, obj_ids: np.ndarray,
+                   frames: np.ndarray, probs: np.ndarray,
+                   feats: np.ndarray):
+        """Fold one CNN batch of unique objects into clustering state and
+        the index, with ``slot_cid`` / eviction remaps carried across
+        calls."""
+        t0 = time.perf_counter()
+        probs = np.asarray(probs)
+        feats = np.asarray(feats, np.float32)
+        self.stats.n_cnn_invocations += len(obj_ids)
+        self.stats.cheap_flops += len(obj_ids) * self.cheap_flops_per_image
+
+        if self._state is None:
+            self._state = C.init_state(self.cfg.max_clusters, feats.shape[1],
+                                       device=self.device)
+        state, slots = self._cluster_fn(self._state, feats,
+                                        self.cfg.threshold)
+        self._state = state
+        self._fold_rows(crops, obj_ids, frames, probs, feats,
+                        slots.cpu().numpy())
+        # eviction keeps the live table at M (paper: evict smallest)
+        if int(self._state.n) >= int(self.cfg.high_water
+                                     * self.cfg.max_clusters):
+            self._evict_live()
+        self.stats.wall_s += time.perf_counter() - t0
+
+    def _fold_rows(self, crops: np.ndarray, obj_ids: np.ndarray,
+                   frames: np.ndarray, probs: np.ndarray,
+                   feats: np.ndarray, slots: np.ndarray):
+        """Host bookkeeping for one clustered batch: slot -> cid mapping,
+        SoA index fold, delta accounting."""
+        if self.n_local_classes is None:
+            self.n_local_classes = probs.shape[1]
+        if self._index is None:
+            self._index = TopKIndex(self.cfg.K, self.n_local_classes,
+                                    self.class_map)
+        # slot -> cid, assigning fresh cids in first-appearance order
+        unmapped = self._slot_cid[slots] < 0
+        if unmapped.any():
+            new_slots, first_pos = np.unique(slots[unmapped],
+                                             return_index=True)
+            order = np.argsort(first_pos, kind="stable")
+            fresh = self._next_cid + np.arange(len(new_slots))
+            self._slot_cid[new_slots[order]] = fresh
+            self._next_cid += len(new_slots)
+            self._delta_new.extend(fresh.tolist())
+        cids = self._slot_cid[slots]
+        self._root_cid.update(zip(obj_ids.tolist(), cids.tolist()))
+
+        touched = self._index.add_batch(cids, feats, probs, obj_ids, frames,
+                                        crops=crops)
+        self._delta_touched.update(
+            self._index.store.row_cids[touched].tolist())
+        self._delta_published += len(obj_ids)
+
+    def _evict_live(self):
+        """Evict the smallest clusters from the live table and remap
+        ``slot_cid``. Host-side by design: eviction compacts the table
+        with an argsort and rewrites the slot -> cid map, both entangled
+        with index bookkeeping the device never sees."""
+        state, evicted, remap = C.evict_smallest(self._state,
+                                                 self.cfg.evict_frac)
+        self.stats.n_evictions += len(evicted)
+        self._delta_evictions += len(evicted)
+        new_slot_cid = np.full_like(self._slot_cid, -1)
+        live = remap >= 0
+        new_slot_cid[remap[live]] = self._slot_cid[live]
+        self._slot_cid = new_slot_cid
+        self._state = state
+
+    def _empty_index(self) -> TopKIndex:
+        nl = (self.n_local_classes if self.n_local_classes is not None
+              else (self.class_map.n_local
+                    if self.class_map is not None else 0))
+        return TopKIndex(self.cfg.K, nl, self.class_map)
+
+    # -- publication -----------------------------------------------------------
+
+    def _attach_eligible(self):
+        """Attach pending duplicates whose root's batch has folded."""
+        if not self._dup_objs:
+            return
+        objs = np.concatenate(self._dup_objs)
+        frames = np.concatenate(self._dup_frames)
+        roots = np.concatenate(self._dup_roots)
+        cids = np.array([self._root_cid.get(r, -1) for r in roots.tolist()],
+                        np.int64)
+        ready = cids >= 0
+        if ready.any():
+            self._index.attach(cids[ready], objs[ready], frames[ready])
+            self._delta_published += int(ready.sum())
+        hold = ~ready
+        if hold.any():
+            self._dup_objs = [objs[hold]]
+            self._dup_frames = [frames[hold]]
+            self._dup_roots = [roots[hold]]
+        else:
+            self._dup_objs, self._dup_frames, self._dup_roots = [], [], []
+
+    def _prune_root_cids(self):
+        """Drop root -> cid entries no future duplicate can reference: new
+        dups only ever point at roots in the tracker's open/previous frame
+        groups, and held dups carry their root explicitly. Keeps the map
+        O(active window) over a continuously ingested stream instead of
+        O(total unique objects)."""
+        keep = set()
+        for seg in self._tracker._open_roots:
+            keep.update(seg.tolist())
+        if self._tracker._prev_roots is not None:
+            keep.update(self._tracker._prev_roots.tolist())
+        for seg in self._dup_roots:
+            keep.update(seg.tolist())
+        if self._gate is not None:
+            # gate roots can be far older than the tracker window; any
+            # ring entry may still be matched (and need its cid) later
+            keep |= self._gate.live_roots()
+        self._root_cid = {r: c for r, c in self._root_cid.items()
+                          if r in keep}
+
+    def flush(self) -> IngestDelta:
+        """Publish what has been ingested so far: attach eligible
+        duplicates and report the clusters a query-side cache needs to
+        refresh. Does NOT fold the partial unique batch — the batch
+        partition must stay a function of the stream alone (that is what
+        makes chunked and one-shot ingests identical)."""
+        t0 = time.perf_counter()
+        self._attach_eligible()
+        self._prune_root_cids()
+        delta = IngestDelta(
+            n_objects_published=self._delta_published,
+            new_cids=list(self._delta_new),
+            touched_cids=sorted(self._delta_touched),
+            n_evictions=self._delta_evictions,
+            n_pending_unique=self.n_pending_unique,
+            n_pending_dups=self.n_pending_dups)
+        self._delta_new = []
+        self._delta_touched = set()
+        self._delta_evictions = 0
+        self._delta_published = 0
+        self.stats.wall_s += time.perf_counter() - t0
+        return delta
+
+    def finish(self) -> Tuple[TopKIndex, IngestStats]:
+        """Drain the final partial batch, attach the remaining duplicates,
+        and return ``(index, stats)`` — after this the ingestor is
+        closed."""
+        if self._finished:
+            return self._index, self.stats
+        self._drain_ready()
+        if len(self._buf):
+            self._fold_crops(*self._buf.take(len(self._buf)))
+        if self._index is None:          # empty stream: class width from the
+            self._index = self._empty_index()   # class map, never dropped
+        self._attach_eligible()
+        # anything still pending has an unknown root (defensive): drop it
+        self._dup_objs, self._dup_frames, self._dup_roots = [], [], []
+        self._finished = True
+        return self._index, self.stats

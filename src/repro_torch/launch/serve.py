@@ -1,0 +1,216 @@
+"""Multi-tenant Focus serving entry point on the card (the paper's deployment
+shape, §5).
+
+One stream: generate it, build the cheap CNN, ingest it (pixel
+differencing -> cheap CNN -> fused clustering -> top-K index), then serve
+``--rounds`` rounds in which ``--tenants`` tenants each submit the
+stream's dominant-class workload through a ``QueryService``: a continuous
+batcher merges every in-flight request into ONE ``query_many`` / GT pass
+per cycle (answers byte-identical to serving each request alone), and
+per-tenant latency percentiles are reported at the end.
+
+  python -m repro_torch.launch.serve --stream jacksonh --duration 60 \\
+      --fps 30 --tenants 4 --rounds 3
+
+The cheap CNN is ``--model`` (default ``cheap1``) with weights drawn from
+``--seed``, or loaded with ``--weights FILE.npz`` (a JAX parameter tree
+saved as numpy, see ``models.cnn.save_npz_params``). The ingest
+parameters are given directly (``--K``, ``--T``): §4.4 parameter
+selection trains models and is not ported yet. The GT-CNN is the
+stream's exact prototype oracle (``data.video.gt_oracle``). Everything
+runs on ``--device`` (default ``cuda``).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+
+from repro_torch.common.config import CHEAP_CNNS
+from repro_torch.core.engine import QueryEngine
+from repro_torch.core.ingest import IngestConfig, ingest
+from repro_torch.core.query import (dominant_classes, gt_frames_by_class,
+                                    precision_recall)
+from repro_torch.data.video import get_stream, gt_oracle
+from repro_torch.models import cnn
+from repro_torch.serve import QueryService, ServiceConfig
+
+
+def _mk_service(engine, args) -> QueryService:
+    cfg = ServiceConfig(
+        max_queue_depth=args.queue_depth,
+        max_batch_requests=args.batch_requests,
+        default_deadline_s=(args.slo_ms / 1e3 if args.slo_ms > 0 else None))
+    return QueryService(engine, cfg)
+
+
+def _serve_round(service: QueryService, n_tenants: int, workload):
+    """Submit one request per tenant — the shared dominant-class workload,
+    rotated per tenant so the overlap the batcher dedupes is explicit —
+    and pump the service idle. Returns (responses by tenant, wall_s)."""
+    t0 = time.perf_counter()
+    for t in range(n_tenants):
+        rot = t % max(len(workload), 1)
+        service.submit(f"tenant{t}",
+                       list(workload[rot:]) + list(workload[:rot]))
+    by_tenant = {}
+    for resp in service.run_until_idle():
+        by_tenant[resp.request.tenant] = resp
+    return by_tenant, time.perf_counter() - t0
+
+
+def _round_line(tag, service, by_tenant, wall, gt_delta):
+    n_req = len(by_tenant)
+    n_cls = sum(len(r.results) for r in by_tenant.values())
+    qps = n_cls / max(wall, 1e-9)
+    batch = service.last_batch
+    merged = (f"{batch.n_unique_candidates} unique candidates, "
+              f"{batch.n_cache_hits} cached"
+              if batch is not None and n_req else "no batch ran")
+    print(f"[serve] {tag}: {n_req} tenants x {max(n_cls // max(n_req, 1), 0)}"
+          f" classes in {wall*1e3:.0f}ms ({qps:.1f} QPS) | "
+          f"{service.stats.n_shared_queries} shared pairs lifetime | "
+          f"{merged}, {gt_delta} GT-CNN calls | p99 "
+          f"{service.slo.percentile_s(99.0)*1e3:.1f}ms")
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--stream", default="lausanne")
+    ap.add_argument("--duration", type=int, default=60)
+    ap.add_argument("--fps", type=int, default=10)
+    ap.add_argument("--model", default="cheap1", choices=sorted(CHEAP_CNNS))
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the cheap CNN's random weights")
+    ap.add_argument("--weights", default=None, metavar="FILE.npz",
+                    help="load the cheap CNN's JAX parameters saved as numpy")
+    ap.add_argument("--K", type=int, default=IngestConfig.K)
+    ap.add_argument("--T", type=float, default=IngestConfig.threshold)
+    ap.add_argument("--rounds", type=int, default=3,
+                    help="query-workload rounds (round 1 is cold, the rest "
+                         "exercise the warm GT-label cache)")
+    ap.add_argument("--tenants", type=int, default=4,
+                    help="concurrent tenants submitting the query workload "
+                         "each round")
+    ap.add_argument("--slo-ms", type=float, default=0.0,
+                    help="per-request latency SLO deadline in ms "
+                         "(0 = no deadline accounting)")
+    ap.add_argument("--queue-depth", type=int, default=256,
+                    help="admission bound on queued requests")
+    ap.add_argument("--batch-requests", type=int, default=32,
+                    help="max requests merged into one batch cycle")
+    ap.add_argument("--index-out", default=None)
+    ap.add_argument("--device", default="cuda")
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Run the serve path; prints per-round and per-tenant lines and returns a
+    summary of the run (counts, ingest rate, per-tenant latencies)."""
+    args = parse_args(argv)
+    vs = get_stream(args.stream, duration_s=args.duration, fps=args.fps)
+    crops, frames, _, labels = vs.objects_array()
+    print(f"[serve] stream={args.stream} objects={len(crops)} "
+          f"classes={len(np.unique(labels))}")
+
+    mcfg = CHEAP_CNNS[args.model]
+    tree = (cnn.load_npz_params(args.weights) if args.weights
+            else cnn.init_params(mcfg, seed=args.seed))
+    apply_fn = cnn.make_apply(cnn.build(mcfg, tree, device=args.device))
+    cfg = IngestConfig(K=args.K, threshold=args.T)
+    origin = (f"weights {args.weights}" if args.weights
+              else f"seed {args.seed}")
+    print(f"[serve] model={args.model} ({origin}) K={cfg.K} "
+          f"T={cfg.threshold} M={cfg.max_clusters} device={args.device}")
+
+    t0 = time.perf_counter()
+    index, stats = ingest(crops, frames, apply_fn, mcfg.flops_per_image(),
+                          cfg, n_local_classes=mcfg.n_classes,
+                          device=args.device)
+    ingest_s = time.perf_counter() - t0
+    print(f"[serve] ingest: {index.n_clusters} clusters / "
+          f"{index.n_objects} objects in {ingest_s:.1f}s "
+          f"({len(crops) / max(ingest_s, 1e-9):.1f} objects/s) | "
+          f"{stats.n_cnn_invocations} CNN'd, {stats.n_pixel_dedup} "
+          f"pixel-dedup, {stats.n_evictions} evicted | cheap CNN "
+          f"{stats.cheap_flops / 1e9:.1f} GFLOP")
+    if args.index_out:
+        index.save(args.index_out)
+        print(f"[serve] index persisted to {args.index_out}.*")
+
+    # steady-state traffic: every round, all tenants submit the dominant-
+    # class workload; the service merges each round's in-flight requests
+    # into one union + one GT-CNN pass, centroid verdicts cached across
+    # rounds
+    gt_apply = gt_oracle(labels)
+    workload = [int(x) for x in dominant_classes(labels)]
+    engine = QueryEngine(index, gt_apply=gt_apply)
+    service = _mk_service(engine, args)
+    gtf = gt_frames_by_class(labels, frames)
+    ps, rs, rounds = [], [], []
+    answers = {}
+    for rnd in range(max(args.rounds, 1)):
+        gt0 = engine.stats.n_gt_invocations
+        by_tenant, wall = _serve_round(service, args.tenants, workload)
+        if not by_tenant:
+            continue
+        n_cls = sum(len(r.results) for r in by_tenant.values())
+        rounds.append({"round": rnd, "wall_s": wall, "n_class_queries": n_cls,
+                       "gt_calls": engine.stats.n_gt_invocations - gt0})
+        _round_line(f"round {rnd}", service, by_tenant, wall,
+                    engine.stats.n_gt_invocations - gt0)
+        if rnd > 0:
+            continue                  # accuracy identical across rounds
+        resp0 = by_tenant.get("tenant0")
+        if resp0 is None:
+            continue
+        for x, res in zip(workload, resp0.results):
+            answers[x] = res.frames
+            p, r = precision_recall(res.frames, gtf.get(x, np.array([])))
+            ps.append(p)
+            rs.append(r)
+            print(f"  query class={x:4d}: {len(res.frames):5d} frames, "
+                  f"{res.n_candidate_clusters:4d} candidates, "
+                  f"{res.n_gt_invocations:4d} fresh GT-CNN calls "
+                  f"P={p:.3f} R={r:.3f}")
+
+    if not ps:
+        print("[serve] no queries served (empty dominant-class workload "
+              "or no surviving objects)")
+    else:
+        print(f"[serve] avg P={np.mean(ps):.3f} R={np.mean(rs):.3f} | "
+              f"lifetime GT calls {engine.stats.n_gt_invocations} for "
+              f"{engine.stats.n_candidates} served candidates")
+    svc = service.stats
+    print(f"[serve] service: {svc.n_completed} requests "
+          f"({svc.n_rejected} rejected) in {svc.n_merged_calls} merged "
+          f"calls | {svc.n_merged_queries} unique pairs, "
+          f"{svc.n_shared_queries} shared")
+    tenants = {}
+    for ts in service.slo:
+        p50 = f"{ts.p50_s*1e3:.1f}" if ts.latencies_s else "-"
+        p99 = f"{ts.p99_s*1e3:.1f}" if ts.latencies_s else "-"
+        print(f"  {ts.tenant}: {ts.n_completed}/{ts.n_submitted} served "
+              f"p50={p50}ms p99={p99}ms deadline_missed="
+              f"{ts.n_deadline_missed} rejected={ts.n_rejected}")
+        tenants[ts.tenant] = {"completed": ts.n_completed,
+                              "p50_ms": ts.p50_s * 1e3,
+                              "p99_ms": ts.p99_s * 1e3}
+    return {
+        "stream": args.stream, "objects": int(len(crops)),
+        "uniques": stats.n_cnn_invocations,
+        "pixel_dedup": stats.n_pixel_dedup,
+        "clusters": index.n_clusters, "evictions": stats.n_evictions,
+        "ingest_s": ingest_s,
+        "ingest_objects_per_s": len(crops) / max(ingest_s, 1e-9),
+        "rounds": rounds, "tenants": tenants,
+        "precision": float(np.mean(ps)) if ps else None,
+        "recall": float(np.mean(rs)) if rs else None,
+        "answers": answers,
+    }
+
+
+if __name__ == "__main__":
+    main()
