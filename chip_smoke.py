@@ -8,19 +8,27 @@ the card.
 Phases, each fatal on failure (no phase's failure is caught):
 
 1. the card (``nvidia-smi``), torch/CUDA versions, and the build of the
-   Hopper kernels from ``src/repro_torch/hopper/csrc``;
+   three Hopper kernels from ``src/repro_torch/hopper/csrc``;
 2. every kernel against its plain PyTorch version on the card, at the
    main path's shapes plus ragged, tie, dead-slot, threshold-edge and
    empty cases, with its time, the plain version's, one PyTorch library
    call's (a yardstick only; the port never calls it) and its bound;
-3. the main path: ``repro_torch.launch.serve`` on the busiest stream
-   (jacksonh, 30 fps) with the full-width cheap1 CNN from seeded random
-   weights, 4 tenants, 3 rounds; the kernels' launch counters are zeroed
-   just before and must be > 0 after;
+3. the two served paths of ``repro_torch.launch.serve`` on the busiest
+   stream (jacksonh, 600 s at 30 fps) with the full-width cheap1 CNN from
+   seeded random weights, 4 tenants, 3 rounds: the one-shot ingest, then
+   the archive (``--archive`` into a temporary directory, 2048 objects
+   per shard, 8 chunks with tenants querying between them). Each path's
+   launch counters are zeroed just before it and read just after: the
+   one-shot path must launch ``centroid_assign`` and ``pixel_match``, the
+   archive path all three kernels. ``dequant_topk`` is then timed on the
+   largest sealed shard's own quantized rows;
 4. card against CPU on a 60 s cut of the stream: the same CNN outputs
    ingested on ``cuda`` and on ``cpu`` save byte-identical indexes and
    answer identically, a 5-chunk ingest on the card saves the same bytes
-   as one-shot, and the CNN's outputs agree to atol 1e-4;
+   as one-shot, and the CNN's outputs agree to atol 1e-4; likewise for
+   the archive: card-chunked, card one-shot and CPU shards byte-identical,
+   and lazy (kernel-ranked) answers equal eagerly loaded shards' and the
+   CPU's;
 5. where the ingest time goes: wall time per stage on a 120 s cut.
 
 Earlier lines are JSON objects, one per line; the last line is
@@ -28,7 +36,7 @@ Earlier lines are JSON objects, one per line; the last line is
 run anywhere but the root of a checkout. Tolerances: indices, ``matched``
 and match decisions exact; squared distances rtol 1e-5 (fp32 dot products
 summed in another order; atol 1e-4 where a distance cancels to ~0); mean
-pixel differences rtol 1e-6.
+pixel differences rtol 1e-6; ``dequant_topk`` values and indices exact.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -200,10 +209,84 @@ def check_pixel_match(ops, ref, dev, crops):
     return max(errs), tracker, gate
 
 
+def _dequant_pair(ops, ref, q, s, k, sg):
+    import numpy as np
+    import torch
+    v, i = ops.dequant_topk(q, s, k, global_scale=sg)
+    vr, ir = ref.dequant_topk_ref(q, s, k, sg)
+    torch.cuda.synchronize()
+    v, i, vr, ir = (x.cpu().numpy() for x in (v, i, vr, ir))
+    check((i == ir).all(), f"dequant_topk indices differ at rows "
+          f"{np.nonzero((i != ir).any(1))[0][:5].tolist()}")
+    check((v == vr).all(), "dequant_topk values differ")
+    return float(np.abs(v - vr).max()) if v.size else 0.0, i
+
+
+def check_dequant_topk(ops, ref, dev):
+    import numpy as np
+    import torch
+    r = np.random.default_rng(2)
+    sg = np.float32(1.0 / 255.0)          # the v4 mean-prob multiplier
+    errs = []
+    # (dtype, M, C, k, top level): the path's full ranking, quantization
+    # ties everywhere, ragged C with k < C, non-positive int8 rows, k < C
+    # at the path's width; every case holds an all-zero row (scale 1)
+    for dtype, M, C, k, hi in ((np.uint8, 300, 1000, 1000, 255),
+                               (np.uint8, 64, 1000, 1000, 3),
+                               (np.int8, 33, 37, 5, 127),
+                               (np.int8, 7, 130, 130, 0),
+                               (np.uint8, 50, 1000, 10, 255)):
+        lo = 0 if dtype == np.uint8 else -127
+        q = r.integers(lo, hi + 1, (M, C)).astype(dtype)
+        s = (r.random(M) + 0.25).astype(np.float32)
+        q[M // 2], s[M // 2] = 0, 1.0
+        errs.append(_dequant_pair(ops, ref, torch.from_numpy(q).to(dev),
+                                  torch.from_numpy(s).to(dev), k, sg)[0])
+    # a planted tie goes to the lowest column
+    q = torch.tensor([[3, 7, 7, 1, 7]], dtype=torch.uint8, device=dev)
+    _, i = _dequant_pair(ops, ref, q, torch.ones(1, device=dev), 5, sg)
+    check(i.tolist() == [[1, 2, 4, 0, 3]], f"dequant_topk ties: {i}")
+    # M = 0: empty outputs, no launch
+    n0 = ops.LAUNCHES["dequant_topk"]
+    v, i = ops.dequant_topk(torch.zeros(0, 1000, dtype=torch.uint8,
+                                        device=dev),
+                            torch.zeros(0, device=dev), 7)
+    check(v.shape == (0, 7) and i.shape == (0, 7)
+          and ops.LAUNCHES["dequant_topk"] == n0, "dequant_topk M = 0")
+    return max(errs)
+
+
+def dequant_entry(ops, ref, dev, prefix, K, peaks):
+    """``dequant_topk`` timed on one sealed shard's own quantized rows (the
+    shape and data the archive path ranks), against its plain version and
+    the library's dequant product plus a stable descending sort."""
+    import numpy as np
+    import torch
+    from repro_torch.core.index import PROB_GLOBAL_SCALE as sg
+    q = torch.from_numpy(np.load(prefix + ".mean_probs_q.npy")).to(dev)
+    s = torch.from_numpy(np.load(prefix + ".prob_scales.npy")).float().to(dev)
+    M, C = q.shape
+    k = min(K, C)
+    err, _ = _dequant_pair(ops, ref, q, s, k, sg)
+    sg_t = torch.tensor(sg, device=q.device)
+    n_bytes = M * C * q.element_size() + 4 * M + 8 * M * k
+    return {
+        "shape": [M, C, k], "dtype": str(q.dtype).replace("torch.", ""),
+        "max_abs_err": err,
+        "ms": time_ms(lambda: ops.dequant_topk(q, s, k, global_scale=sg)),
+        "plain_ms": time_ms(lambda: ref.dequant_topk_ref(q, s, k, sg)),
+        "library_ms": time_ms(lambda: torch.sort(
+            q.float() * (sg_t * s)[:, None], dim=1, descending=True,
+            stable=True)),
+        "bound_ms": 1e3 * n_bytes / peaks["bytes"], "bound_by": "bytes",
+    }
+
+
 def kernel_phase(ops, ref, dev, crops, peaks):
     import torch
     ca_err, (f, c, T) = check_centroid_assign(ops, ref, dev)
     pm_err, tracker, gate = check_pixel_match(ops, ref, dev, crops)
+    dq_err = check_dequant_topk(ops, ref, dev)
 
     B, D = f.shape
     M = c.shape[0]
@@ -247,7 +330,11 @@ def kernel_phase(ops, ref, dev, crops, peaks):
           "replaces": "src/repro/kernels/pixel_diff.py:77",
           "max_abs_err": pm_err, **pm_entry(*tracker)}
     pm_gate = {"name": "pixel_match", **pm_entry(*gate)}
-    return ca, pm, pm_gate
+    dq = {"name": "dequant_topk", "route": "cuda",
+          "source": "src/repro_torch/hopper/csrc/dequant_topk.cu",
+          "replaces": "src/repro/kernels/dequant_topk.py:56",
+          "max_abs_err": dq_err}
+    return ca, pm, pm_gate, dq
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +404,69 @@ def card_vs_cpu(serve_args):
             "evictions": stats.n_evictions,
             "answered_frames": int(sum(len(a) for a in answers["cuda"])),
             "bytes_identical": True, "chunked_equals_oneshot": True})
+    out["archive"] = archive_card_vs_cpu(crops, frames, labels, cheap,
+                                         workload, serve_args)
     return out
+
+
+def archive_card_vs_cpu(crops, frames, labels, cheap, workload, serve_args,
+                        shard_objects=512):
+    """Shards sealed on the card (chunked and one-shot) and on the CPU are
+    byte-identical; the lazy archive engine (``dequant_topk`` on the card,
+    its plain version on the CPU) answers like eagerly loaded shards."""
+    import numpy as np
+    import torch
+    from repro_torch.core.archive import ArchiveQueryEngine, ShardCatalog
+    from repro_torch.core.engine import QueryEngine
+    from repro_torch.core.index import saved_file_bytes
+    from repro_torch.core.ingest import IngestConfig
+    from repro_torch.core.streaming import StreamingIngestor
+    from repro_torch.data.video import gt_oracle
+
+    cfg = IngestConfig(K=serve_args["K"], threshold=serve_args["T"])
+    gt = gt_oracle(labels)
+    with tempfile.TemporaryDirectory() as root:
+        cats = {}
+        for name, dev, n_chunks in (("cuda_chunked", "cuda", 5),
+                                    ("cuda", "cuda", 1), ("cpu", "cpu", 1)):
+            cat = ShardCatalog.open(os.path.join(root, name))
+            ing = StreamingIngestor(cheap, 0.0, cfg, n_local_classes=1000,
+                                    catalog=cat, shard_objects=shard_objects,
+                                    device=dev)
+            bounds = np.linspace(0, len(crops), n_chunks + 1).astype(int)
+            for lo, hi in zip(bounds, bounds[1:]):
+                ing.feed(crops[lo:hi], frames[lo:hi])
+                ing.flush()
+            ing.finish()
+            torch.cuda.synchronize()
+            cats[name] = cat
+        ref_cat = cats["cpu"]
+        check(len(ref_cat) > 1, "the archive cut sealed one shard")
+        for name, cat in cats.items():
+            check([vars(m) for m in cat] == [vars(m) for m in ref_cat],
+                  f"{name} manifest differs from the CPU's")
+            for m in cat:
+                check(saved_file_bytes(cat.path_of(m.shard_id))
+                      == saved_file_bytes(ref_cat.path_of(m.shard_id)),
+                      f"{name} shard {m.shard_id} differs from the CPU's")
+        answers = {}
+        for name, dev in (("cuda", "cuda"), ("cpu", "cpu")):
+            res, _ = ArchiveQueryEngine(cats[name], gt_apply=gt,
+                                        device=dev).query_many(workload)
+            answers[name] = [r.frames.tolist() for r in res]
+        eager = []
+        for cls in workload:
+            parts = [QueryEngine(ref_cat.load_shard(m.shard_id),
+                                 gt_apply=gt).query(cls).frames
+                     for m in ref_cat]
+            eager.append(np.unique(np.concatenate(parts)).tolist())
+        check(answers["cuda"] == answers["cpu"] == eager,
+              "lazy archive answers differ (card, CPU, eager)")
+        return {"shard_objects": shard_objects, "shards": len(ref_cat),
+                "clusters": sum(m.n_clusters for m in ref_cat),
+                "answered_frames": int(sum(len(a) for a in eager)),
+                "bytes_identical": True, "chunked_equals_oneshot": True,
+                "lazy_equals_eager": True}
 
 
 # ---------------------------------------------------------------------------
@@ -423,11 +572,11 @@ def main():
     # -- phase 2: kernels against plain versions ------------------------------
     crops, frames = get_stream("jacksonh", duration_s=10,
                                fps=30).objects_array()[:2]
-    ca, pm, pm_gate = kernel_phase(ops, ref, dev, (crops, frames), peaks)
+    ca, pm, pm_gate, dq = kernel_phase(ops, ref, dev, (crops, frames), peaks)
     emit({"phase": "kernels", "gpu": smi, "pixel_match_gate_shape": pm_gate,
           "elapsed_s": elapsed()})
 
-    # -- phase 3: the main path ------------------------------------------------
+    # -- phase 3: the served paths -------------------------------------------
     # seeded random weights rank the same classes first for every crop, so
     # the index ranks all 1000 classes (K=1000) and clusters at T=0.4, where
     # the random features still separate tracks: every query then reaches
@@ -438,24 +587,47 @@ def main():
             "--fps", "30", "--model", "cheap1", "--seed", "0",
             "--tenants", "4", "--rounds", "3", "--K", str(serve_args["K"]),
             "--T", str(serve_args["T"]), "--device", "cuda"]
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    report = serve.main(argv)
-    torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the path never launched: {launches}")
-    check(report["clusters"] > 1 and report["objects"] > 0, "empty ingest")
-    check(sum(len(f) for f in report["answers"].values()) > 0,
-          "no query answered a frame")
-    for k in ("precision", "recall"):
-        check(report[k] is not None and 0.0 <= report[k] <= 1.0, k)
-    emit({"phase": "main_path", "gpu": smi, "argv": argv,
-          "duration_s": duration, "wall_s": time.perf_counter() - t0,
-          "launches": launches,
-          **{k: v for k, v in report.items() if k != "answers"}})
-    ca["launches"] = launches["centroid_assign"]
-    pm["launches"] = launches["pixel_match"]
+
+    def drive(path, path_argv, kernels):
+        """One served path, its launch counters zeroed just before it and
+        read just after; each of ``kernels`` must have launched."""
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        report = serve.main(path_argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        check(all(launches[k] > 0 for k in kernels),
+              f"a kernel of the {path} path never launched: {launches}")
+        check(report["clusters"] > 1 and report["objects"] > 0,
+              f"empty ingest on the {path} path")
+        check(sum(len(f) for f in report["answers"].values()) > 0,
+              f"no query answered a frame on the {path} path")
+        for k in ("precision", "recall"):
+            check(report[k] is not None and 0.0 <= report[k] <= 1.0, k)
+        emit({"phase": f"{path}_path", "gpu": smi, "argv": path_argv,
+              "duration_s": duration, "wall_s": wall, "launches": launches,
+              **{k: v for k, v in report.items() if k != "answers"}})
+        return report, launches
+
+    _, oneshot = drive("oneshot", argv, ("centroid_assign", "pixel_match"))
+    with tempfile.TemporaryDirectory() as arch:
+        archive_argv = argv + ["--archive", arch, "--shard-objects", "2048",
+                               "--stream-chunks", "8"]
+        report, archive = drive("archive", archive_argv, tuple(ops.LAUNCHES))
+        check(report["shards"] > 1, "the archive path sealed one shard")
+        with open(os.path.join(arch, "catalog.json")) as f:
+            shards = json.load(f)["shards"]
+        largest = max(shards, key=lambda m: m["n_clusters"])
+        entry = dequant_entry(ops, ref, dev,
+                              os.path.join(arch, largest["path"]),
+                              serve_args["K"], peaks)
+    entry["max_abs_err"] = max(entry["max_abs_err"], dq["max_abs_err"])
+    dq.update(entry)
+    for entry in (ca, pm):
+        entry["launches"] = oneshot[entry["name"]]
+        entry["launches_archive"] = archive[entry["name"]]
+    dq["launches"] = archive["dequant_topk"]
 
     # -- phase 4: card against CPU --------------------------------------------
     emit({"phase": "card_vs_cpu", **card_vs_cpu(serve_args),
@@ -464,7 +636,7 @@ def main():
           "elapsed_s": elapsed()})
     check(elapsed() < LIMIT_S, f"over the {LIMIT_S} s limit")
 
-    emit({"kernels": [ca, pm]})
+    emit({"kernels": [ca, pm, dq]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -16,6 +16,10 @@ canonicalized at read/save time, so *when* the ingestor flushed them is
 equally invisible. One-shot ``ingest()`` is the single-chunk special
 case, and a chunked run saves byte-identically to it.
 
+With a ``core.archive.ShardCatalog`` the ingestor rolls its live index
+over into sealed time shards, each byte-identical to a one-shot
+``ingest()`` of its window.
+
 Freshness model for query-while-ingest: ``feed`` folds every complete
 batch immediately; ``flush`` attaches the pixel-diff duplicates whose
 root's batch has folded and publishes an ``IngestDelta`` naming the
@@ -27,7 +31,7 @@ Pixel differencing and clustering run on the ingestor's ``device``.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -44,11 +48,15 @@ class IngestDelta:
     """What one ``flush()`` made newly visible to queries."""
     n_objects_published: int         # uniques folded + duplicates attached
     new_cids: List[int]              # clusters created since the last flush
-    touched_cids: List[int]          # clusters whose centroid moved
-                                     # (sorted, includes the new ones)
+    touched_cids: List[int]          # live-shard clusters whose centroid
+                                     # moved (sorted, includes the new ones)
     n_evictions: int
     n_pending_unique: int            # buffered, awaiting a full CNN batch
     n_pending_dups: int              # awaiting their root's batch
+    sealed_shards: List[int] = field(default_factory=list)
+    touched_sealed: List[Tuple[int, int]] = field(default_factory=list)
+    # (shard_id, cid) for clusters touched since the last flush whose
+    # shard has since been sealed — what an ArchiveQueryEngine prefetches
 
 
 class _PixelTracker:
@@ -261,19 +269,51 @@ class StreamingIngestor:
     returns numpy arrays. ``feed`` / ``flush`` / ``finish`` are the
     lifecycle; ``ingest()`` in ``core.ingest`` is the single-chunk
     wrapper. Pixel differencing and clustering run on ``device``.
+
+    With a ``catalog`` (``core.archive.ShardCatalog``) the ingestor rolls
+    the live index over into time shards: after ``shard_objects`` fed
+    objects and/or at absolute ``shard_frames``-wide frame-window
+    boundaries, the live index is *sealed* — drained, saved through the
+    catalog, and replaced by a fresh one with all clustering/tracker state
+    reset. Object ids restart per shard, so every sealed shard is
+    byte-identical to a one-shot ``ingest()`` of its window (the rollover
+    invariant; ``ShardMeta.obj_base`` maps ids back to global positions).
+    ``finish()`` seals the tail shard. Sealing drains the tail batch
+    through ``cheap_apply``, so a catalog needs one.
     """
 
-    def __init__(self, cheap_apply: Callable,
+    def __init__(self, cheap_apply: Optional[Callable],
                  cheap_flops_per_image: float = 0.0,
                  cfg: Optional[IngestConfig] = None,
                  class_map: Optional[ClassMap] = None,
                  n_local_classes: Optional[int] = None,
+                 catalog=None, shard_objects: Optional[int] = None,
+                 shard_frames: Optional[int] = None,
+                 shard_format: Optional[int] = None,
                  device: DeviceLike = "cuda"):
+        if catalog is not None and cheap_apply is None:
+            raise ValueError("shard rollover needs cheap_apply: sealing "
+                             "drains the tail batch through the CNN")
+        if catalog is None and (shard_objects is not None
+                                or shard_frames is not None):
+            raise ValueError("shard_objects/shard_frames need a catalog")
+        if shard_objects is not None and shard_objects < 1:
+            raise ValueError(f"shard_objects must be >= 1: {shard_objects}")
+        if shard_frames is not None and shard_frames < 1:
+            raise ValueError(f"shard_frames must be >= 1: {shard_frames}")
+        if shard_format is not None and catalog is None:
+            raise ValueError("shard_format needs a catalog")
         self.cheap_apply = cheap_apply
         self.cheap_flops_per_image = cheap_flops_per_image
         self.cfg = cfg if cfg is not None else IngestConfig()
         self.class_map = class_map
         self.n_local_classes = n_local_classes
+        self.catalog = catalog
+        self.shard_objects = shard_objects
+        self.shard_frames = shard_frames
+        # None -> the catalog's default (v4 quantized columnar); pin 3 to
+        # seal fp32 npz shards
+        self.shard_format = shard_format
         self.device = resolve_device(device)
         self.stats = IngestStats()
         try:
@@ -307,14 +347,32 @@ class StreamingIngestor:
         self._dup_frames: List[np.ndarray] = []
         self._dup_roots: List[np.ndarray] = []
         self._root_cid: Dict[int, int] = {}     # folded unique obj -> cid
-        self._obj_next = 0       # next default object id (kept objects)
+        self._obj_next = 0       # next default object id (kept objects;
+                                 # shard-local under rollover)
         self._max_frame: Optional[int] = None
         self._finished = False
+        # live-shard accounting (identity values when no catalog is set)
+        self._shard_n_fed = 0                   # objects fed to live shard
+        self._shard_obj_base = 0                # global pos of its 1st obj
+        self._shard_frame_lo: Optional[int] = None
+        self._shard_frame_hi: Optional[int] = None
+        self._shard_window_end: Optional[int] = None
         # delta accounting between flushes
         self._delta_new: List[int] = []
         self._delta_touched: set = set()
         self._delta_evictions = 0
         self._delta_published = 0
+        self._delta_sealed: List[int] = []
+        self._delta_touched_sealed: List[Tuple[int, int]] = []
+        if catalog is not None and len(catalog.shards):
+            # resuming on a non-empty catalog: new shards continue the
+            # global object-id line and the non-decreasing frame contract
+            # from where the existing archive ends (every fed object is
+            # sealed as a member, so obj_base + n_objects is the count of
+            # all objects fed to the prior run)
+            last = catalog.shards[-1]
+            self._shard_obj_base = last.obj_base + last.n_objects
+            self._max_frame = last.frame_hi
 
     # -- queryable state -------------------------------------------------------
 
@@ -335,6 +393,13 @@ class StreamingIngestor:
     def n_pending_dups(self) -> int:
         return int(sum(len(a) for a in self._dup_objs))
 
+    @property
+    def shard_obj_base(self) -> int:
+        """Global arrival position of the live shard's first object (0
+        when rollover is off) — maps shard-local object ids back to the
+        concatenated stream."""
+        return self._shard_obj_base
+
     # -- feeding ---------------------------------------------------------------
 
     def feed(self, crops: np.ndarray, frames: np.ndarray,
@@ -342,8 +407,10 @@ class StreamingIngestor:
         """Ingest one chunk. Frames must be non-decreasing across feeds
         (chunks may split a frame's objects; the open frame keeps
         accepting members). ``obj_ids`` defaults to arrival positions in
-        the concatenated stream (counting kept objects only), exactly the
-        ids a one-shot ``ingest()`` assigns. A rejected chunk mutates nothing: validation runs before
+        the concatenated stream (counting kept objects only) — shard-local
+        under rollover, i.e. the shard's objects ranked by arrival,
+        exactly the ids a one-shot ``ingest()`` of the shard's window
+        assigns. A rejected chunk mutates nothing: validation runs before
         any stats or object-id state is touched.
         """
         if self._finished:
@@ -386,20 +453,64 @@ class StreamingIngestor:
         self.stats.n_objects += n
         if n == 0:
             return
-        if obj_ids is None:
-            # rank the kept objects by chunk-arrival position: ids follow
-            # arrival order even when the chunk was internally unsorted,
-            # matching what a one-shot ingest assigns
-            ranks = np.argsort(np.argsort(arr_pos, kind="stable"),
-                               kind="stable")
-            obj_ids = self._obj_next + ranks.astype(np.int64)
-        self._obj_next += n
-        self._ingest_chunk(crops, frames, obj_ids)
+        start = 0
+        while start < n:
+            if self.catalog is not None \
+                    and self._frame_boundary(int(frames[start])):
+                self._seal_shard()
+            end = self._shard_cut(frames, start, n)
+            if obj_ids is None:
+                # rank the segment's objects by chunk-arrival position:
+                # ids follow arrival order even when the chunk was
+                # internally unsorted, matching what a one-shot ingest of
+                # the shard's window (objects in arrival order) assigns
+                ranks = np.argsort(np.argsort(arr_pos[start:end],
+                                              kind="stable"),
+                                   kind="stable")
+                seg_ids = self._obj_next + ranks.astype(np.int64)
+            else:
+                seg_ids = obj_ids[start:end]
+            self._obj_next += end - start
+            self._shard_n_fed += end - start
+            if self._shard_frame_lo is None:
+                self._shard_frame_lo = int(frames[start])
+            self._shard_frame_hi = int(frames[end - 1])
+            self._ingest_chunk(crops[start:end], frames[start:end], seg_ids)
+            start = end
+            if self.catalog is not None and self.shard_objects is not None \
+                    and self._shard_n_fed >= self.shard_objects:
+                self._seal_shard()
+
+    def _frame_boundary(self, f: int) -> bool:
+        """True when the next object falls past the live shard's absolute
+        frame window (windows are ``[i*W, (i+1)*W)``, pinned by the
+        shard's first frame — so the shard partition is a function of the
+        stream alone, never of the chunking)."""
+        return (self.shard_frames is not None
+                and self._shard_window_end is not None
+                and self._shard_n_fed > 0
+                and f >= self._shard_window_end)
+
+    def _shard_cut(self, frames: np.ndarray, start: int, n: int) -> int:
+        """End of the maximal [start, end) run that stays inside the live
+        shard's objects-per-shard and frame-window budgets."""
+        end = n
+        if self.catalog is None:
+            return end
+        if self.shard_objects is not None:
+            end = min(end, start + self.shard_objects - self._shard_n_fed)
+        if self.shard_frames is not None:
+            if self._shard_window_end is None:
+                W = self.shard_frames
+                self._shard_window_end = (int(frames[start]) // W + 1) * W
+            end = min(end, start + int(np.searchsorted(
+                frames[start:n], self._shard_window_end, side="left")))
+        return end
 
     def _ingest_chunk(self, crops: np.ndarray, frames: np.ndarray,
                       obj_ids: np.ndarray):
-        """Pixel-diff + buffer one frame-sorted chunk, folding every
-        completed CNN batch."""
+        """Pixel-diff + buffer one frame-sorted, single-shard segment,
+        folding every completed CNN batch."""
         t0 = time.perf_counter()
         n = len(crops)
         if self.cfg.pixel_diff or self._gate is not None:
@@ -542,6 +653,59 @@ class StreamingIngestor:
                     if self.class_map is not None else 0))
         return TopKIndex(self.cfg.K, nl, self.class_map)
 
+    # -- shard rollover --------------------------------------------------------
+
+    def _seal_shard(self):
+        """Seal the live index as one archive shard: drain the tail batch,
+        attach the remaining duplicates, save through the catalog, and
+        reset all per-shard state (clustering table, slot->cid map, pixel
+        tracker, redundancy gate, object ids). The next shard then ingests
+        exactly like a fresh run, which is what makes every sealed shard
+        byte-identical to a one-shot ``ingest()`` of its window."""
+        self._drain_ready()
+        if len(self._buf):
+            self._fold_crops(*self._buf.take(len(self._buf)))
+        if self._index is None:
+            self._index = self._empty_index()
+        self._attach_eligible()
+        self._dup_objs, self._dup_frames, self._dup_roots = [], [], []
+        seal_kw = ({} if self.shard_format is None
+                   else {"format": self.shard_format})
+        meta = self.catalog.seal(
+            self._index,
+            frame_lo=(self._shard_frame_lo
+                      if self._shard_frame_lo is not None else 0),
+            frame_hi=(self._shard_frame_hi
+                      if self._shard_frame_hi is not None else 0),
+            obj_base=self._shard_obj_base, **seal_kw)
+        # clusters touched since the last flush now live in the sealed
+        # shard; report them shard-tagged so a query-side cache can warm
+        # them under their final identity
+        self._delta_sealed.append(meta.shard_id)
+        self._delta_touched_sealed.extend(
+            (meta.shard_id, c) for c in sorted(self._delta_touched))
+        self._delta_touched = set()
+        self._delta_new = []
+        self._state = None
+        self._slot_cid = np.full(self.cfg.max_clusters, -1, np.int64)
+        self._next_cid = 0
+        self._tracker = _PixelTracker(self.cfg.pixel_diff_threshold,
+                                      self.device)
+        self._gate = (_RedundancyGate(self.cfg.gate_threshold,
+                                      self.cfg.gate_capacity, self.device)
+                      if self.cfg.gate else None)
+        self._root_cid = {}
+        self._index = (self._empty_index()
+                       if self.n_local_classes is not None
+                       or self.class_map is not None else None)
+        self._shard_obj_base += self._shard_n_fed
+        self._shard_n_fed = 0
+        self._obj_next = 0
+        self._shard_frame_lo = None
+        self._shard_frame_hi = None
+        self._shard_window_end = None
+        return meta
+
     # -- publication -----------------------------------------------------------
 
     def _attach_eligible(self):
@@ -600,19 +764,32 @@ class StreamingIngestor:
             touched_cids=sorted(self._delta_touched),
             n_evictions=self._delta_evictions,
             n_pending_unique=self.n_pending_unique,
-            n_pending_dups=self.n_pending_dups)
+            n_pending_dups=self.n_pending_dups,
+            sealed_shards=list(self._delta_sealed),
+            touched_sealed=list(self._delta_touched_sealed))
         self._delta_new = []
         self._delta_touched = set()
         self._delta_evictions = 0
         self._delta_published = 0
+        self._delta_sealed = []
+        self._delta_touched_sealed = []
         self.stats.wall_s += time.perf_counter() - t0
         return delta
 
     def finish(self) -> Tuple[TopKIndex, IngestStats]:
         """Drain the final partial batch, attach the remaining duplicates,
-        and return ``(index, stats)`` — after this the ingestor is
-        closed."""
+        and return ``(index, stats)`` — after this the ingestor is closed.
+        Under rollover the tail is sealed as the final shard and the
+        returned index is the (empty) successor; the archive lives in the
+        catalog."""
         if self._finished:
+            return self._index, self.stats
+        if self.catalog is not None:
+            if self._shard_n_fed:
+                self._seal_shard()
+            if self._index is None:
+                self._index = self._empty_index()
+            self._finished = True
             return self._index, self.stats
         self._drain_ready()
         if len(self._buf):

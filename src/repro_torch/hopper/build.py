@@ -33,6 +33,8 @@ _SIGNATURES = {
                                _float, _vp),
     "pixel_match_launch": (_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
                            _int, _float, _vp),
+    "dequant_topk_launch": (_vp, _int, _vp, _float, _vp, _vp, _int, _int,
+                            _int, _vp),
 }
 
 _lock = threading.Lock()

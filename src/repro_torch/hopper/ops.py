@@ -16,7 +16,11 @@ import torch
 
 from repro_torch.hopper import build, ref
 
-LAUNCHES = {"centroid_assign": 0, "pixel_match": 0}
+LAUNCHES = {"centroid_assign": 0, "pixel_match": 0, "dequant_topk": 0}
+
+# widest row the dequant_topk kernel ranks: its fp32 copy of one row lives
+# in 48 KB of shared memory (kMaxC in csrc/dequant_topk.cu)
+DEQUANT_MAX_C = 48 * 1024 // 4
 
 
 def reset_launches():
@@ -126,3 +130,60 @@ def pixel_match(a: torch.Tensor, b: torch.Tensor, threshold):
     _raise_on(err, "pixel_match")
     LAUNCHES["pixel_match"] += 1
     return match, min_d
+
+
+def dequant_topk(q: torch.Tensor, scales: torch.Tensor, k: int, *,
+                 global_scale=1.0):
+    """q (M, C) int8/uint8, scales (M,) f32 ->
+    (values (M, k) f32, indices (M, k) i32), descending.
+
+    Fused dequant + top-k over quantized rows: ``values`` are the top-k of
+    ``q * (global_scale * scales)[:, None]``, each product one fp32
+    multiply in that order, with ties to the LOWEST column index — the
+    archive's lazy rank path over v4 shards. ``scales`` are the stored
+    per-row scales and must be positive. ``k > C`` (or ``k < 1``) raises;
+    ``M == 0`` gives empty outputs without a launch. Float inputs raise:
+    dequantizing an already-dequantized matrix is a bug."""
+    if q.dim() != 2:
+        raise ValueError(f"q must be (M, C), got {tuple(q.shape)}")
+    M, C = q.shape
+    if not 1 <= k <= C:
+        raise ValueError(
+            f"k must be in [1, C={C}], got {k}: the top-k of a (M, {C}) "
+            f"quantized matrix has at most {C} entries per row")
+    if q.dtype.is_floating_point or q.dtype.is_complex \
+            or q.dtype == torch.bool:
+        raise ValueError(f"dequant_topk expects integer quantized rows, "
+                         f"got {q.dtype}")
+    if tuple(scales.shape) != (M,):
+        raise ValueError(f"scales must be ({M},) to match q's rows, got "
+                         f"{tuple(scales.shape)}")
+    if scales.device != q.device:
+        raise ValueError(f"q/scales lie on {q.device} and {scales.device}")
+    if q.device.type == "cpu":
+        return ref.dequant_topk_ref(q, scales, k, global_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    dev = q.device
+    vals = torch.empty((M, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((M, k), dtype=torch.int32, device=dev)
+    if M == 0:
+        return vals, idx
+    if q.dtype not in (torch.uint8, torch.int8):
+        raise ValueError(f"the dequant_topk kernel takes int8 or uint8, got "
+                         f"{q.dtype}")
+    if scales.dtype != torch.float32:
+        raise ValueError(f"scales must be float32, got {scales.dtype}")
+    if not (q.is_contiguous() and scales.is_contiguous()):
+        raise ValueError("dequant_topk: the kernel takes contiguous rows")
+    if C > DEQUANT_MAX_C:
+        raise ValueError(f"dequant_topk: C={C} exceeds the kernel's "
+                         f"{DEQUANT_MAX_C} columns (one fp32 row in 48 KB "
+                         f"of shared memory)")
+    sg = float(np.float32(global_scale))
+    err = build.load().dequant_topk_launch(
+        q.data_ptr(), int(q.dtype == torch.int8), scales.data_ptr(), sg,
+        vals.data_ptr(), idx.data_ptr(), M, C, k, _stream(dev))
+    _raise_on(err, "dequant_topk")
+    LAUNCHES["dequant_topk"] += 1
+    return vals, idx

@@ -12,7 +12,11 @@ alike:
 * ``pixel_match_ref`` forms ``|a - b|`` in fp32 and sums it in fp64 before
   rounding the mean to fp32 once, as the CUDA kernel does (see
   ``csrc/pixel_diff.cu`` for why), in blocks bounded like the JAX
-  package's blocked numpy matcher.
+  package's blocked numpy matcher;
+* ``dequant_topk_ref`` dequantizes as ``q * (sg * scale_row)``, each
+  product one fp32 multiply in that order (the TPU kernel's and the eager
+  v4 loader's op order), and ranks with a stable descending sort, so ties
+  go to the lowest column as in the CUDA kernel's rank count.
 """
 from __future__ import annotations
 
@@ -70,3 +74,16 @@ def pixel_match_ref(a: torch.Tensor, b: torch.Tensor, threshold):
     j = torch.cat(args).to(torch.int32)
     thr = torch.as_tensor(threshold, dtype=torch.float32).to(a.device)
     return torch.where(min_d < thr, j, torch.full_like(j, -1)), min_d
+
+
+def dequant_topk_ref(q: torch.Tensor, scales: torch.Tensor, k: int,
+                     global_scale=1.0):
+    """q (M, C) int8/uint8, scales (M,) f32 -> (values (M, k) f32,
+    indices (M, k) i32): the top-k of ``q * (global_scale * scales)[:,
+    None]``, descending, ties to the LOWEST column. ``torch.topk`` does
+    not keep that tie rule, so the rows are sorted with ``stable=True``."""
+    sg = torch.as_tensor(global_scale, dtype=torch.float32,
+                         device=q.device).reshape(())
+    x = q.float() * (sg * scales.float())[:, None]
+    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()

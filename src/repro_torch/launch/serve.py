@@ -19,31 +19,58 @@ parameters are given directly (``--K``, ``--T``): §4.4 parameter
 selection trains models and is not ported yet. The GT-CNN is the
 stream's exact prototype oracle (``data.video.gt_oracle``). Everything
 runs on ``--device`` (default ``cuda``).
+
+With ``--stream-chunks N`` the ingest runs *streaming*: the stream's
+chunks are offered to the service, which arbitrates the device between
+ingest and the tenants' queries per ``--service-policy`` — ``query``
+protects query SLOs (chunks wait in a bounded backlog, shedding the
+oldest on overflow per ``--ingest-backlog``), ``ingest`` runs chunks
+first and lets admission control shed query overflow instead. Every
+chunk that ingests is prefetched into the GT-label cache, so warm
+queries between chunks stay off the GT-CNN path.
+
+With ``--archive DIR`` the ingest additionally rolls the live index over
+into time shards (``--shard-objects`` each) sealed under DIR in the v4
+quantized format, and the service queries through an
+``ArchiveQueryEngine``: merged batches fan out across every sealed shard
+plus the live one, with a single GT-CNN pass over the uncached
+candidates of all shards. Sealed shards are ranked on the card by the
+``dequant_topk`` kernel, once per residency in the shard cache
+(``--shard-cache-mb``).
+
+  python -m repro_torch.launch.serve --stream jacksonh --duration 600 \\
+      --fps 30 --K 1000 --T 0.4 --archive /tmp/arch --stream-chunks 8
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 
 from repro_torch.common.config import CHEAP_CNNS
+from repro_torch.core.archive import ArchiveQueryEngine, ShardCatalog
 from repro_torch.core.engine import QueryEngine
 from repro_torch.core.ingest import IngestConfig, ingest
 from repro_torch.core.query import (dominant_classes, gt_frames_by_class,
                                     precision_recall)
+from repro_torch.core.streaming import StreamingIngestor
 from repro_torch.data.video import get_stream, gt_oracle
 from repro_torch.models import cnn
 from repro_torch.serve import QueryService, ServiceConfig
 
 
-def _mk_service(engine, args) -> QueryService:
+def _mk_service(engine, args, ingestor=None) -> QueryService:
     cfg = ServiceConfig(
         max_queue_depth=args.queue_depth,
         max_batch_requests=args.batch_requests,
+        policy=args.service_policy,
+        max_ingest_backlog=(args.ingest_backlog
+                            if args.ingest_backlog > 0 else None),
         default_deadline_s=(args.slo_ms / 1e3 if args.slo_ms > 0 else None))
-    return QueryService(engine, cfg)
+    return QueryService(engine, cfg, ingestor=ingestor)
 
 
 def _serve_round(service: QueryService, n_tenants: int, workload):
@@ -76,6 +103,68 @@ def _round_line(tag, service, by_tenant, wall, gt_delta):
           f"{service.slo.percentile_s(99.0)*1e3:.1f}ms")
 
 
+def _streaming_ingest(crops, frames, apply_fn, flops, cfg, n_classes,
+                      workload, gt_apply, n_chunks, args):
+    """Offer the stream's chunks to the service while tenants query
+    between chunks from the live, still-growing index (query-while-
+    ingest). Returns (index, stats, engine, service) — the engine's
+    GT-label cache stays warm for the post-ingest query rounds."""
+    ing = StreamingIngestor(apply_fn, flops, cfg, n_local_classes=n_classes,
+                            device=args.device)
+    engine = QueryEngine(ing.index, gt_apply=gt_apply)
+    service = _mk_service(engine, args, ingestor=ing)
+    bounds = np.linspace(0, len(crops), n_chunks + 1).astype(int)
+    for rnd, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+        service.offer_ingest(crops[lo:hi], frames[lo:hi])
+        gt0 = engine.stats.n_gt_invocations
+        chunks0 = service.stats.n_ingest_chunks
+        by_tenant, wall = _serve_round(service, args.tenants, workload)
+        print(f"[serve] chunk {rnd}: +{hi - lo} objs offered "
+              f"({service.stats.n_ingest_chunks - chunks0} ingested, "
+              f"{service.pending_ingest} deferred, "
+              f"{service.stats.n_ingest_shed_chunks} shed lifetime) | "
+              f"{service.stats.n_prefetch_gt} prefetched GT lifetime")
+        _round_line(f"chunk {rnd}", service, by_tenant, wall,
+                    engine.stats.n_gt_invocations - gt0)
+    service.drain_ingest()
+    index, stats = ing.finish()
+    engine.prefetch(ing.flush().touched_cids)
+    return index, stats, engine, service
+
+
+def _archive_ingest(crops, frames, apply_fn, flops, cfg, n_classes,
+                    workload, gt_apply, n_chunks, args):
+    """Streaming ingest with shard rollover; merged tenant batches fan out
+    across sealed shards + the live index through an
+    ``ArchiveQueryEngine``. Returns (catalog, stats, engine, service)."""
+    catalog = ShardCatalog.open(args.archive)
+    ing = StreamingIngestor(apply_fn, flops, cfg, n_local_classes=n_classes,
+                            catalog=catalog, shard_objects=args.shard_objects,
+                            device=args.device)
+    cache_kw = ({"capacity": args.shard_cache} if args.shard_cache > 0
+                else {"capacity_bytes": args.shard_cache_mb << 20})
+    engine = ArchiveQueryEngine(catalog, gt_apply=gt_apply, ingestor=ing,
+                                device=args.device, **cache_kw)
+    service = _mk_service(engine, args, ingestor=ing)
+    bounds = np.linspace(0, len(crops), n_chunks + 1).astype(int)
+    for rnd, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
+        service.offer_ingest(crops[lo:hi], frames[lo:hi])
+        gt0 = engine.stats.n_gt_invocations
+        by_tenant, wall = _serve_round(service, args.tenants, workload)
+        batch = service.last_batch
+        shards = (f"{batch.n_shards} shards, {batch.n_shard_loads} loads"
+                  if batch is not None else "no batch")
+        print(f"[serve] chunk {rnd}: +{hi - lo} objs offered | "
+              f"{len(catalog)} shards sealed ({shards}) | "
+              f"{service.stats.n_prefetch_gt} prefetched GT lifetime")
+        _round_line(f"chunk {rnd}", service, by_tenant, wall,
+                    engine.stats.n_gt_invocations - gt0)
+    service.drain_ingest()
+    ing.finish()
+    engine.prefetch(ing.flush())
+    return catalog, ing.stats, engine, service
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stream", default="lausanne")
@@ -101,6 +190,31 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="admission bound on queued requests")
     ap.add_argument("--batch-requests", type=int, default=32,
                     help="max requests merged into one batch cycle")
+    ap.add_argument("--service-policy", default="query",
+                    choices=["query", "ingest"],
+                    help="backpressure policy when ingest and queries "
+                         "contend: 'query' defers/sheds ingest chunks, "
+                         "'ingest' runs chunks first and sheds query "
+                         "overflow via admission control")
+    ap.add_argument("--ingest-backlog", type=int, default=0,
+                    help="max deferred ingest chunks before the oldest is "
+                         "shed (0 = unbounded, never shed)")
+    ap.add_argument("--stream-chunks", type=int, default=0,
+                    help="feed the stream in N chunks and serve the query "
+                         "workload between chunks (query-while-ingest); "
+                         "0 = one-shot ingest (8 chunks with --archive)")
+    ap.add_argument("--archive", default=None, metavar="DIR",
+                    help="time-sharded archive mode: seal shards into DIR "
+                         "during ingest and serve queries through the "
+                         "cross-shard ArchiveQueryEngine")
+    ap.add_argument("--shard-objects", type=int, default=2048,
+                    help="archive mode: objects per sealed shard")
+    ap.add_argument("--shard-cache", type=int, default=0,
+                    help="archive mode: LRU capacity in resident shard "
+                         "COUNT (deprecated bound; 0 = use --shard-cache-mb)")
+    ap.add_argument("--shard-cache-mb", type=int, default=256,
+                    help="archive mode: LRU capacity in MiB of resident "
+                         "shard heap state (ignored when --shard-cache > 0)")
     ap.add_argument("--index-out", default=None)
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
@@ -125,29 +239,60 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"[serve] model={args.model} ({origin}) K={cfg.K} "
           f"T={cfg.threshold} M={cfg.max_clusters} device={args.device}")
 
+    gt_apply = gt_oracle(labels)
+    workload = [int(x) for x in dominant_classes(labels)]
+    streaming = bool(args.archive) or args.stream_chunks > 0
+    n_chunks = args.stream_chunks if args.stream_chunks > 0 else 8
+    if streaming:
+        # freshness scales with the CNN batch cut: size batches to the
+        # chunk so each round actually publishes (the partition is still a
+        # function of the stream alone, not of the chunking)
+        chunk = max(1, -(-len(crops) // n_chunks))
+        cfg = dataclasses.replace(
+            cfg, batch_size=max(16, min(cfg.batch_size, chunk)))
+    ingest_args = (crops, frames, apply_fn, mcfg.flops_per_image(), cfg,
+                   mcfg.n_classes, workload, gt_apply, n_chunks, args)
     t0 = time.perf_counter()
-    index, stats = ingest(crops, frames, apply_fn, mcfg.flops_per_image(),
-                          cfg, n_local_classes=mcfg.n_classes,
-                          device=args.device)
-    ingest_s = time.perf_counter() - t0
-    print(f"[serve] ingest: {index.n_clusters} clusters / "
-          f"{index.n_objects} objects in {ingest_s:.1f}s "
+    index = catalog = None
+    if args.archive:
+        catalog, stats, engine, service = _archive_ingest(*ingest_args)
+    elif args.stream_chunks > 0:
+        index, stats, engine, service = _streaming_ingest(*ingest_args)
+    else:
+        index, stats = ingest(crops, frames, apply_fn,
+                              mcfg.flops_per_image(), cfg,
+                              n_local_classes=mcfg.n_classes,
+                              device=args.device)
+        engine = QueryEngine(index, gt_apply=gt_apply)
+        service = _mk_service(engine, args)
+    # streaming modes interleave query rounds with the ingest, so their
+    # ingest time is the ingestor's own accounted wall
+    ingest_s = stats.wall_s if streaming else time.perf_counter() - t0
+    if catalog is not None:
+        n_clusters = sum(m.n_clusters for m in catalog)
+        n_members = sum(m.n_objects for m in catalog)
+        where = f" in {len(catalog)} shards sealed under {args.archive}"
+    else:
+        n_clusters, n_members, where = index.n_clusters, index.n_objects, ""
+    print(f"[serve] ingest: {n_clusters} clusters / {n_members} objects"
+          f"{where} in {ingest_s:.1f}s "
           f"({len(crops) / max(ingest_s, 1e-9):.1f} objects/s) | "
           f"{stats.n_cnn_invocations} CNN'd, {stats.n_pixel_dedup} "
           f"pixel-dedup, {stats.n_evictions} evicted | cheap CNN "
           f"{stats.cheap_flops / 1e9:.1f} GFLOP")
     if args.index_out:
-        index.save(args.index_out)
-        print(f"[serve] index persisted to {args.index_out}.*")
+        if index is None:
+            print("[serve] --index-out ignored: archive shards are already "
+                  "persisted through the catalog")
+        else:
+            index.save(args.index_out)
+            print(f"[serve] index persisted to {args.index_out}.*")
 
     # steady-state traffic: every round, all tenants submit the dominant-
     # class workload; the service merges each round's in-flight requests
     # into one union + one GT-CNN pass, centroid verdicts cached across
-    # rounds
-    gt_apply = gt_oracle(labels)
-    workload = [int(x) for x in dominant_classes(labels)]
-    engine = QueryEngine(index, gt_apply=gt_apply)
-    service = _mk_service(engine, args)
+    # rounds. In streaming modes the chunk rounds' service carries its warm
+    # GT-label cache straight into these rounds.
     gtf = gt_frames_by_class(labels, frames)
     ps, rs, rounds = [], [], []
     answers = {}
@@ -187,7 +332,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"[serve] service: {svc.n_completed} requests "
           f"({svc.n_rejected} rejected) in {svc.n_merged_calls} merged "
           f"calls | {svc.n_merged_queries} unique pairs, "
-          f"{svc.n_shared_queries} shared")
+          f"{svc.n_shared_queries} shared | ingest {svc.n_ingest_chunks} "
+          f"chunks ({svc.n_ingest_deferred} chunk-cycles deferred, "
+          f"{svc.n_ingest_shed_chunks} shed)")
     tenants = {}
     for ts in service.slo:
         p50 = f"{ts.p50_s*1e3:.1f}" if ts.latencies_s else "-"
@@ -198,18 +345,30 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         tenants[ts.tenant] = {"completed": ts.n_completed,
                               "p50_ms": ts.p50_s * 1e3,
                               "p99_ms": ts.p99_s * 1e3}
-    return {
+    summary = {
         "stream": args.stream, "objects": int(len(crops)),
         "uniques": stats.n_cnn_invocations,
         "pixel_dedup": stats.n_pixel_dedup,
-        "clusters": index.n_clusters, "evictions": stats.n_evictions,
+        "clusters": n_clusters, "evictions": stats.n_evictions,
         "ingest_s": ingest_s,
         "ingest_objects_per_s": len(crops) / max(ingest_s, 1e-9),
+        "ingest_chunks": svc.n_ingest_chunks,
         "rounds": rounds, "tenants": tenants,
         "precision": float(np.mean(ps)) if ps else None,
         "recall": float(np.mean(rs)) if rs else None,
         "answers": answers,
     }
+    if catalog is not None:
+        st = engine.stats
+        print(f"[serve] shard cache: {st.resident_bytes / 2**20:.2f} MiB "
+              f"resident | {st.n_shard_loads} loads, {st.n_shard_hits} "
+              f"hits ({st.shard_hit_rate:.0%}), {st.n_shard_evictions} "
+              f"evictions")
+        summary.update(shards=len(catalog), shard_loads=st.n_shard_loads,
+                       shard_hits=st.n_shard_hits,
+                       shard_evictions=st.n_shard_evictions,
+                       resident_bytes=st.resident_bytes)
+    return summary
 
 
 if __name__ == "__main__":

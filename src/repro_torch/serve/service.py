@@ -1,8 +1,9 @@
 """Multi-tenant query service: request queue, admission control,
 continuous batching, and ingest/query backpressure (DESIGN.md §12).
 
-``QueryService`` turns the batched ``QueryEngine`` into a serving
-layer. Tenants ``submit()`` class queries; each ``step()`` runs one
+``QueryService`` turns the batched engines (``QueryEngine``,
+``ArchiveQueryEngine``) into a serving layer. Tenants ``submit()`` class
+queries; each ``step()`` runs one
 **continuous-batch cycle** that merges every admitted in-flight request —
 across all tenants — into ONE ``query_many`` call, deduping identical
 ``(class, Kx)`` pairs, so the engine pays one candidate union and at most
@@ -48,6 +49,7 @@ from typing import (Callable, Deque, Dict, List, Optional, Sequence, Tuple,
 
 import numpy as np
 
+from repro_torch.core.archive import ArchiveQueryEngine
 from repro_torch.core.engine import normalize_kx
 from repro_torch.serve.slo import LatencyTracker, TenantStats
 
@@ -65,8 +67,8 @@ class QueryRequest:
 
 @dataclass
 class QueryResponse:
-    """A completed request: per-class ``QueryResult``s aligned to
-    ``request.classes``."""
+    """A completed request: per-class results aligned to
+    ``request.classes`` (``QueryResult`` or ``ArchiveQueryResult``)."""
     request: QueryRequest
     results: List[object]
     latency_s: float
@@ -128,12 +130,14 @@ class ServiceStats:
 
 
 class QueryService:
-    """Serves many tenants' class queries against one ``QueryEngine``,
-    one merged ``query_many`` per cycle, with admission control and
-    ingest/query backpressure.
+    """Serves many tenants' class queries against one engine
+    (``QueryEngine`` or ``ArchiveQueryEngine``), one merged
+    ``query_many`` per cycle, with admission control and ingest/query
+    backpressure.
 
     ``ingestor`` (optional) is the ``StreamingIngestor`` behind
-    ``offer_ingest``.
+    ``offer_ingest``; when the engine is an ``ArchiveQueryEngine`` it
+    should be the same ingestor the engine queries as its live shard.
     ``clock`` is injectable so tests can pin latency/deadline accounting.
     """
 
@@ -264,8 +268,11 @@ class QueryService:
             self.stats.n_ingest_chunks += 1
             self.stats.n_ingest_objects += len(crops)
             if self.cfg.prefetch:
-                self.stats.n_prefetch_gt += self.engine.prefetch(
-                    delta.touched_cids)
+                if isinstance(self.engine, ArchiveQueryEngine):
+                    self.stats.n_prefetch_gt += self.engine.prefetch(delta)
+                else:
+                    self.stats.n_prefetch_gt += self.engine.prefetch(
+                        delta.touched_cids)
 
     def _run_batch(self) -> List[QueryResponse]:
         if not self._queue:

@@ -6,6 +6,9 @@ versions (``hopper.ref``); they are held here against the Pallas kernels
 runs them) and the JAX package's numpy matcher. Indices, ``matched`` and
 match decisions must be exact; squared distances agree to rtol 1e-5 (fp32
 products summed in another order) and mean pixel differences to rtol 1e-6.
+``dequant_topk``'s values and indices must be exact (two fp32 multiplies
+in one order, then a ranking). The interpret-mode ``dequant_topk`` runs k
+passes, so its cases keep k and C small.
 The CUDA kernels themselves are held against the plain versions in
 ``test_torch_hopper_cuda.py``, which runs on the card.
 """
@@ -171,4 +174,81 @@ def test_cpu_tensors_take_the_plain_version():
     ops.reset_launches()
     ops.centroid_assign(torch.ones(4, 8), torch.zeros(3, 8), threshold=1.0)
     ops.pixel_match(torch.ones(4, 8), torch.zeros(3, 8), 0.1)
-    assert ops.LAUNCHES == {"centroid_assign": 0, "pixel_match": 0}
+    ops.dequant_topk(torch.ones(4, 8, dtype=torch.uint8), torch.ones(4), 3)
+    assert ops.LAUNCHES == {"centroid_assign": 0, "pixel_match": 0,
+                            "dequant_topk": 0}
+
+
+# ---------------------------------------------------------------------------
+# dequant_topk
+# ---------------------------------------------------------------------------
+
+SG = np.float32(1.0 / 255.0)          # the v4 format's mean-prob multiplier
+
+
+def _quantized(dtype, M, C, seed, levels=None):
+    """Quantized rows as the v4 writer makes them, with optional planted
+    ties (``levels`` distinct values per row) and an all-zero row whose
+    sentinel scale is 1."""
+    r = np.random.default_rng(seed)
+    info = np.iinfo(dtype)
+    lo = 0 if dtype == np.uint8 else -127
+    hi = levels if levels is not None else info.max
+    q = r.integers(lo, hi + 1, (M, C)).astype(dtype)
+    scales = (r.random(M) + 0.25).astype(np.float32)
+    if M > 2:
+        q[2] = 0
+        scales[2] = 1.0
+    return q, scales
+
+
+def _assert_dequant_eq(q, scales, k):
+    vals, idx = ops.dequant_topk(torch.from_numpy(q), torch.from_numpy(scales),
+                                 k, global_scale=SG)
+    assert vals.dtype == torch.float32 and idx.dtype == torch.int32
+    jv, ji = jops.dequant_topk(q, scales, k, global_scale=SG)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+    return vals.numpy(), idx.numpy()
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int8])
+@pytest.mark.parametrize("M,C,k,levels", [
+    (9, 37, 1, None), (9, 37, 3, None), (9, 37, 37, None),
+    (5, 16, 16, 3), (17, 8, 3, 1), (1, 130, 5, None),
+])
+def test_dequant_topk_matches_jax(dtype, M, C, k, levels):
+    q, scales = _quantized(dtype, M, C, M * C + k, levels)
+    vals, idx = _assert_dequant_eq(q, scales, k)
+    # the eager v4 loader's dequant, ranked by a stable descending argsort
+    x = q.astype(np.float32) * (SG * scales)[:, None]
+    order = np.argsort(-x, axis=1, kind="stable")[:, :k]
+    np.testing.assert_array_equal(idx, order)
+    np.testing.assert_array_equal(vals, np.take_along_axis(x, order, 1))
+
+
+def test_dequant_topk_ties_go_to_the_lowest_column():
+    q = np.array([[3, 7, 7, 1, 7], [0, 0, 0, 0, 0]], np.uint8)
+    scales = np.array([0.5, 1.0], np.float32)
+    _, idx = _assert_dequant_eq(q, scales, 5)
+    assert idx.tolist() == [[1, 2, 4, 0, 3], [0, 1, 2, 3, 4]]
+
+
+def test_dequant_topk_empty_rows():
+    for dtype in (torch.uint8, torch.int8):
+        vals, idx = ops.dequant_topk(torch.zeros(0, 12, dtype=dtype),
+                                     torch.zeros(0), 4, global_scale=SG)
+        assert vals.shape == (0, 4) and idx.shape == (0, 4)
+        assert vals.dtype == torch.float32 and idx.dtype == torch.int32
+
+
+@pytest.mark.parametrize("q,scales,k", [
+    (torch.zeros(3, 5, dtype=torch.uint8), torch.ones(3), 6),      # k > C
+    (torch.zeros(3, 5, dtype=torch.uint8), torch.ones(3), 0),      # k < 1
+    (torch.zeros(3, 5), torch.ones(3), 2),                         # float q
+    (torch.zeros(3, 5, dtype=torch.int8), torch.ones(4), 2),       # scales
+    (torch.zeros(3, 5, dtype=torch.int8), torch.ones(3, 1), 2),
+])
+def test_dequant_topk_rejects_bad_inputs(q, scales, k):
+    with pytest.raises(ValueError):
+        ops.dequant_topk(q, scales, k)

@@ -8,7 +8,8 @@ PyTorch and the CUDA toolkit are installed:
 Without a card every test skips. Indices, ``matched`` and match decisions
 must be exact; squared distances agree to rtol 1e-5 (fp32 dot products
 summed in another order; atol 1e-4 where a distance cancels to ~0) and
-mean pixel differences to rtol 1e-6.
+mean pixel differences to rtol 1e-6. ``dequant_topk``'s values and
+indices must be exact.
 """
 import numpy as np
 import pytest
@@ -102,3 +103,47 @@ def test_pixel_match_kernel_strict_threshold_and_empty(cuda):
     assert (m.cpu().numpy() == 0).all()
     m, d = ops.pixel_match(z, torch.zeros(0, 3072, device=cuda), 0.5)
     assert (m.cpu().numpy() == -1).all() and torch.isinf(d).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,M,C,k,hi", [
+    (np.uint8, 300, 1000, 1000, 255),    # the archive path's shape
+    (np.uint8, 64, 1000, 1000, 3),       # quantization ties everywhere
+    (np.int8, 33, 37, 5, 127),           # ragged C, k < C
+    (np.int8, 7, 130, 130, 0),           # non-positive rows, ties
+    (np.uint8, 5, 1, 1, 255),
+])
+def test_dequant_topk_kernel_matches_plain(cuda, dtype, M, C, k, hi):
+    r = np.random.default_rng(M + C + k)
+    lo = 0 if dtype == np.uint8 else -127
+    q = r.integers(lo, hi + 1, (M, C)).astype(dtype)
+    scales = (r.random(M) + 0.25).astype(np.float32)
+    q[M // 2] = 0                                # all-zero row, scale 1
+    scales[M // 2] = 1.0
+    qt = torch.from_numpy(q).to(cuda)
+    st = torch.from_numpy(scales).to(cuda)
+    sg = np.float32(1.0 / 255.0)
+    before = ops.LAUNCHES["dequant_topk"]
+    v, i = ops.dequant_topk(qt, st, k, global_scale=sg)
+    assert ops.LAUNCHES["dequant_topk"] == before + 1
+    vr, ir = ref.dequant_topk_ref(qt, st, k, sg)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(i.cpu().numpy(), ir.cpu().numpy())
+    np.testing.assert_array_equal(v.cpu().numpy(), vr.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_dequant_topk_kernel_empty_and_errors(cuda):
+    before = ops.LAUNCHES["dequant_topk"]
+    v, i = ops.dequant_topk(torch.zeros(0, 10, dtype=torch.uint8,
+                                        device=cuda),
+                            torch.zeros(0, device=cuda), 3)
+    assert v.shape == (0, 3) and i.shape == (0, 3)
+    assert ops.LAUNCHES["dequant_topk"] == before
+    with pytest.raises(ValueError):
+        ops.dequant_topk(torch.zeros(2, ops.DEQUANT_MAX_C + 1,
+                                     dtype=torch.uint8, device=cuda),
+                         torch.ones(2, device=cuda), 1)
+    with pytest.raises(ValueError):
+        ops.dequant_topk(torch.zeros(2, 8, dtype=torch.int32, device=cuda),
+                         torch.ones(2, device=cuda), 1)

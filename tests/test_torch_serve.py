@@ -2,7 +2,7 @@
 responses are identical on the same index, and the port's
 ``launch.serve`` entry point answers the same frames as the JAX
 ``QueryService`` over the JAX ingest of the same stream and the same CNN
-outputs."""
+outputs — one-shot, and in archive mode over the shards it sealed."""
 import importlib
 
 import numpy as np
@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from conftest import make_stream
+from repro.core.archive import ArchiveQueryEngine as JArchiveQueryEngine
+from repro.core.archive import ShardCatalog as JShardCatalog
 from repro.core.engine import QueryEngine as JQueryEngine
 from repro.core.query import dominant_classes
 from repro.serve import QueryService as JQueryService
@@ -108,6 +110,70 @@ def test_serve_entry_point_end_to_end_on_cpu_matches_jax_service():
     (resp,) = service.run_until_idle()
     assert list(report["answers"]) == workload
     for x, res in zip(workload, resp.results):
+        np.testing.assert_array_equal(report["answers"][x], res.frames)
+
+
+def test_serve_streaming_mode_on_cpu_matches_jax_service():
+    """``--stream-chunks 3``: tenants query the live index between chunks,
+    and the final answers equal the JAX ``QueryService``'s over a one-shot
+    JAX ingest at the same (chunk-clamped) CNN batch size — chunking never
+    changes the index."""
+    argv = ["--stream", "jacksonh", "--duration", "6", "--fps", "30",
+            "--device", "cpu", "--K", "1000", "--T", "0.4", "--rounds", "1",
+            "--stream-chunks", "3"]
+    report = serve.main(argv)
+    assert report["ingest_chunks"] == 3
+    assert all(t["completed"] == 4 for t in report["tenants"].values())
+
+    crops, frames, _, labels = get_stream(
+        "jacksonh", duration_s=6, fps=30).objects_array()
+    mcfg = CHEAP_CNNS["cheap1"]
+    apply = cnn.make_apply(cnn.build(mcfg, cnn.init_params(mcfg, 0),
+                                     device="cpu"))
+    batch = max(16, min(512, -(-len(crops) // 3)))
+    index, _ = J.ingest(crops, frames, apply, 1.0,
+                        J.IngestConfig(K=1000, threshold=0.4,
+                                       batch_size=batch),
+                        n_local_classes=1000)
+    assert report["clusters"] == index.n_clusters
+    workload = [int(x) for x in dominant_classes(labels)]
+    results, _ = JQueryEngine(index, gt_apply=gt_oracle(labels)
+                              ).query_many(workload)
+    assert any(len(f) for f in report["answers"].values())
+    for x, res in zip(workload, results):
+        np.testing.assert_array_equal(report["answers"][x], res.frames)
+
+
+def test_serve_archive_mode_on_cpu_matches_jax_archive_engine(tmp_path):
+    """``launch.serve --archive DIR --stream-chunks 4`` on the CPU: tenants
+    query between chunks across shard rollovers, and the final round-0
+    answers equal the JAX ``ArchiveQueryEngine``'s over the shards the
+    port sealed. ``--K 1000`` because seeded random weights rank the same
+    classes first for every crop; the shards hold a few dozen clusters, so
+    the JAX package's interpret-mode ``dequant_topk`` stays cheap."""
+    arch = str(tmp_path / "arch")
+    argv = ["--stream", "jacksonh", "--duration", "20", "--fps", "30",
+            "--device", "cpu", "--K", "1000", "--T", "0.4", "--rounds", "2",
+            "--archive", arch, "--stream-chunks", "4",
+            "--shard-objects", "512"]
+    report = serve.main(argv)
+    catalog = JShardCatalog.open(arch)
+    assert report["shards"] == len(catalog) >= 2
+    assert report["ingest_chunks"] == 4
+    assert report["objects"] == sum(m.n_objects for m in catalog)
+    assert report["clusters"] == sum(m.n_clusters for m in catalog)
+    assert report["shard_loads"] >= len(catalog)
+    # 4 chunk rounds + 2 final rounds, one request per tenant each
+    assert all(t["completed"] == 6 for t in report["tenants"].values())
+    assert any(len(f) for f in report["answers"].values())
+
+    _, frames, _, labels = get_stream(
+        "jacksonh", duration_s=20, fps=30).objects_array()
+    workload = [int(x) for x in dominant_classes(labels)]
+    results, _ = JArchiveQueryEngine(
+        catalog, gt_apply=gt_oracle(labels)).query_many(workload)
+    assert list(report["answers"]) == workload
+    for x, res in zip(workload, results):
         np.testing.assert_array_equal(report["answers"][x], res.frames)
 
 
