@@ -8,27 +8,37 @@ the card.
 Phases, each fatal on failure (no phase's failure is caught):
 
 1. the card (``nvidia-smi``), torch/CUDA versions, and the build of the
-   three Hopper kernels from ``src/repro_torch/hopper/csrc``;
+   four Hopper kernels from ``src/repro_torch/hopper/csrc``;
 2. every kernel against its plain PyTorch version on the card, at the
    main path's shapes plus ragged, tie, dead-slot, threshold-edge and
    empty cases, with its time, the plain version's, one PyTorch library
    call's (a yardstick only; the port never calls it) and its bound;
+   ``topk`` is timed on a batch of the cheap CNN's own probabilities;
 3. the two served paths of ``repro_torch.launch.serve`` on the busiest
    stream (jacksonh, 600 s at 30 fps) with the full-width cheap1 CNN from
    seeded random weights, 4 tenants, 3 rounds: the one-shot ingest, then
    the archive (``--archive`` into a temporary directory, 2048 objects
-   per shard, 8 chunks with tenants querying between them). Each path's
-   launch counters are zeroed just before it and read just after: the
-   one-shot path must launch ``centroid_assign`` and ``pixel_match``, the
-   archive path all three kernels. ``dequant_topk`` is then timed on the
-   largest sealed shard's own quantized rows;
+   per shard, 8 chunks with tenants querying between them); then the
+   fused ingest pipeline (``IngestPipeline`` with a ``topk_sink``, which
+   no entry point passes) on the same stream with the config the serve
+   path builds, against the staged path (``staged_cheap_apply``) in turns
+   staged, pipeline, pipeline, staged: all four indexes byte-identical,
+   and a rollover run on a 120 s cut (2048 objects per shard, 8 chunks)
+   whose shards equal the staged rollover's. Each path's launch counters
+   are zeroed just before it and read just after: the one-shot path must
+   launch ``centroid_assign`` and ``pixel_match``, the archive path those
+   and ``dequant_topk``, the pipeline path ``centroid_assign``,
+   ``pixel_match`` and ``topk``, once per megastep. ``dequant_topk`` is
+   then timed on the largest sealed shard's own quantized rows;
 4. card against CPU on a 60 s cut of the stream: the same CNN outputs
    ingested on ``cuda`` and on ``cpu`` save byte-identical indexes and
    answer identically, a 5-chunk ingest on the card saves the same bytes
    as one-shot, and the CNN's outputs agree to atol 1e-4; likewise for
    the archive: card-chunked, card one-shot and CPU shards byte-identical,
    and lazy (kernel-ranked) answers equal eagerly loaded shards' and the
-   CPU's;
+   CPU's; and for the pipeline: the card's and the CPU's pipelines and
+   the CPU's staged path save identical bytes, and the two sinks hold
+   identical top-K;
 5. where the ingest time goes: wall time per stage on a 120 s cut.
 
 Earlier lines are JSON objects, one per line; the last line is
@@ -36,7 +46,8 @@ Earlier lines are JSON objects, one per line; the last line is
 run anywhere but the root of a checkout. Tolerances: indices, ``matched``
 and match decisions exact; squared distances rtol 1e-5 (fp32 dot products
 summed in another order; atol 1e-4 where a distance cancels to ~0); mean
-pixel differences rtol 1e-6; ``dequant_topk`` values and indices exact.
+pixel differences rtol 1e-6; ``dequant_topk`` and ``topk`` values and
+indices exact.
 """
 from __future__ import annotations
 
@@ -282,11 +293,69 @@ def dequant_entry(ops, ref, dev, prefix, K, peaks):
     }
 
 
-def kernel_phase(ops, ref, dev, crops, peaks):
+def _topk_pair(ops, ref, x, k):
+    import numpy as np
+    import torch
+    v, i = ops.topk(x, k)
+    vr, ir = ref.topk_ref(x, k)
+    torch.cuda.synchronize()
+    v, i, vr, ir = (t.cpu().numpy() for t in (v, i, vr, ir))
+    check((i == ir).all(), f"topk indices differ at rows "
+          f"{np.nonzero((i != ir).any(1))[0][:5].tolist()}")
+    check((v == vr).all(), "topk values differ")
+    return float(np.abs(v - vr).max()) if v.size else 0.0, i
+
+
+def check_topk(ops, ref, dev, probs):
+    """``topk`` against its plain version: the cheap CNN's own batch at
+    the pipeline's shape (512 x 1000, k = 1000), ties everywhere, k < C,
+    ragged C, a row of equal values in each, a planted tie and B = 0."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(3)
+    errs = [_topk_pair(ops, ref, probs, probs.shape[1])[0]]
+    for B, C, k, levels in ((512, 1000, 1000, 4), (64, 1000, 10, None),
+                            (33, 37, 5, None), (7, 130, 130, 2)):
+        x = r.random((B, C), dtype=np.float32)
+        if levels is not None:
+            x = np.floor(x * levels).astype(np.float32)
+        x /= x.sum(1, keepdims=True) + 1
+        x[B // 2] = 0.5
+        errs.append(_topk_pair(ops, ref, torch.from_numpy(x).to(dev), k)[0])
+    _, i = _topk_pair(ops, ref, torch.tensor([[1.0, 3, 3, 2, 3]],
+                                             device=dev), 3)
+    check(i.tolist() == [[1, 2, 4]], f"topk ties: {i}")
+    n0 = ops.LAUNCHES["topk"]
+    v, i = ops.topk(torch.zeros(0, 1000, device=dev), 7)
+    check(v.shape == (0, 7) and i.shape == (0, 7)
+          and ops.LAUNCHES["topk"] == n0, "topk B = 0")
+    return max(errs)
+
+
+def topk_entry(ops, ref, probs, peaks):
+    """``topk`` timed on one full batch of the cheap CNN's probabilities
+    (the pipeline's shape and data), against its plain version and the
+    library's stable descending sort."""
+    import torch
+    B, C = probs.shape
+    k = C
+    n_bytes = 4 * B * C + 8 * B * k
+    return {
+        "shape": [B, C, k],
+        "ms": time_ms(lambda: ops.topk(probs, k)),
+        "plain_ms": time_ms(lambda: ref.topk_ref(probs, k)),
+        "library_ms": time_ms(lambda: torch.sort(
+            probs, dim=1, descending=True, stable=True)[1][:, :k]),
+        "bound_ms": 1e3 * n_bytes / peaks["bytes"], "bound_by": "bytes",
+    }
+
+
+def kernel_phase(ops, ref, dev, crops, probs, peaks):
     import torch
     ca_err, (f, c, T) = check_centroid_assign(ops, ref, dev)
     pm_err, tracker, gate = check_pixel_match(ops, ref, dev, crops)
     dq_err = check_dequant_topk(ops, ref, dev)
+    tk_err = check_topk(ops, ref, dev, probs)
 
     B, D = f.shape
     M = c.shape[0]
@@ -334,7 +403,146 @@ def kernel_phase(ops, ref, dev, crops, peaks):
           "source": "src/repro_torch/hopper/csrc/dequant_topk.cu",
           "replaces": "src/repro/kernels/dequant_topk.py:56",
           "max_abs_err": dq_err}
-    return ca, pm, pm_gate, dq
+    tk = {"name": "topk", "route": "cuda",
+          "source": "src/repro_torch/hopper/csrc/topk.cu",
+          "replaces": "src/repro/kernels/topk_mask.py:42",
+          "max_abs_err": tk_err, **topk_entry(ops, ref, probs, peaks)}
+    return ca, pm, pm_gate, dq, tk
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the fused ingest pipeline
+# ---------------------------------------------------------------------------
+
+def _pipeline_ingest(forward, cfg, crops, frames, flops, mode, sink=None):
+    """One ingest of ``crops`` on the card, staged (``staged_cheap_apply``)
+    or through the fused pipeline; returns the ingestor's results, the
+    pipeline (None when staged) and the host wall time."""
+    import torch
+    from repro_torch.core.ingest import ingest
+    from repro_torch.core.pipeline import IngestPipeline, staged_cheap_apply
+    pipe = (IngestPipeline(forward, cfg, topk_sink=sink)
+            if mode == "pipeline" else None)
+    apply = staged_cheap_apply(forward, cfg) if pipe is None else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index, stats = ingest(crops, frames, apply, flops, cfg,
+                          n_local_classes=1000, device="cuda",
+                          pipeline=pipe)
+    torch.cuda.synchronize()
+    return index, stats, pipe, time.perf_counter() - t0
+
+
+def pipeline_path(ops, forward, mcfg, serve_args, duration):
+    """The fused pipeline against the staged path on the same stream, in
+    turns staged, pipeline, pipeline, staged; the first pipeline run is
+    the one whose launches are counted. Every index must save the same
+    bytes, and the sink must hold every CNN'd object once."""
+    import numpy as np
+    from repro_torch.core.ingest import IngestConfig
+    from repro_torch.data.video import get_stream
+
+    crops, frames = get_stream("jacksonh", duration_s=duration,
+                               fps=30).objects_array()[:2]
+    # the config launch/serve.py builds for its one-shot ingest
+    cfg = IngestConfig(K=serve_args["K"], threshold=serve_args["T"])
+    flops = mcfg.flops_per_image()
+    sunk = []
+
+    def sink(objs, vals, idxs):
+        if not sunk:                    # the first batch: full rankings
+            check((np.diff(vals, axis=1) <= 0).all()
+                  and (np.sort(idxs, axis=1) == np.arange(idxs.shape[1])
+                       ).all(), "the sink's first batch is not a ranking")
+        sunk.append(np.array(objs))
+
+    runs, launches = [], None
+    for i, mode in enumerate(("staged", "pipeline", "pipeline", "staged")):
+        if i == 1:
+            ops.reset_launches()
+        index, stats, pipe, wall = _pipeline_ingest(
+            forward, cfg, crops, frames, flops, mode,
+            sink=sink if i == 1 else None)
+        if i == 1:
+            launches = dict(ops.LAUNCHES)
+            counted = (stats, pipe)
+        runs.append({"mode": mode, "wall_s": wall,
+                     "objects_per_s": len(crops) / wall,
+                     "bytes": index.save_bytes(),
+                     "clusters": index.n_clusters})
+    want = runs[0]["bytes"]
+    check(all(r.pop("bytes") == want for r in runs),
+          "pipeline and staged indexes differ on the card")
+    stats, pipe = counted
+    check(all(launches[k] > 0 for k in ("centroid_assign", "pixel_match",
+                                        "topk")),
+          f"a kernel of the pipeline path never launched: {launches}")
+    check(launches["topk"] == pipe.stats.n_batches,
+          f"topk launched {launches['topk']} times for "
+          f"{pipe.stats.n_batches} megasteps")
+    objs = np.concatenate(sunk)
+    check(len(objs) == stats.n_cnn_invocations == len(np.unique(objs)),
+          "the sink does not hold every CNN'd object once")
+    check(pipe.stats.dispatches_per_batch <= 2.0, "over 2 dispatches/batch")
+    rate = {m: [r["objects_per_s"] for r in runs if r["mode"] == m]
+            for m in ("staged", "pipeline")}
+    return {
+        "duration_s": duration, "objects": int(len(crops)),
+        "cnn": stats.n_cnn_invocations, "launches": launches,
+        "runs": runs, "bytes_identical": True,
+        "staged_objects_per_s_mean": float(np.mean(rate["staged"])),
+        "pipeline_objects_per_s_mean": float(np.mean(rate["pipeline"])),
+        "pipeline_stats": {**vars(pipe.stats), "dispatches_per_batch":
+                           pipe.stats.dispatches_per_batch},
+        "rollover": pipeline_rollover(forward, cfg, flops, 120),
+    }
+
+
+def pipeline_rollover(forward, cfg, flops, duration, shard_objects=2048,
+                      n_chunks=8):
+    """Rollover through the pipeline and through the staged path, fed in
+    chunks: the sealed shards and manifests must be identical."""
+    import numpy as np
+    import torch
+    from repro_torch.core.archive import ShardCatalog
+    from repro_torch.core.index import saved_file_bytes
+    from repro_torch.core.pipeline import IngestPipeline, staged_cheap_apply
+    from repro_torch.core.streaming import StreamingIngestor
+    from repro_torch.data.video import get_stream
+
+    crops, frames = get_stream("jacksonh", duration_s=duration,
+                               fps=30).objects_array()[:2]
+    bounds = np.linspace(0, len(crops), n_chunks + 1).astype(int)
+    out = {"duration_s": duration, "shard_objects": shard_objects,
+           "chunks": n_chunks}
+    with tempfile.TemporaryDirectory() as root:
+        cats = {}
+        for mode in ("staged", "pipeline"):
+            cats[mode] = ShardCatalog.open(os.path.join(root, mode))
+            pipe = IngestPipeline(forward, cfg) if mode == "pipeline" else None
+            ing = StreamingIngestor(
+                None if pipe else staged_cheap_apply(forward, cfg), flops,
+                cfg, n_local_classes=1000, catalog=cats[mode],
+                shard_objects=shard_objects, device="cuda", pipeline=pipe)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for lo, hi in zip(bounds, bounds[1:]):
+                ing.feed(crops[lo:hi], frames[lo:hi])
+                ing.flush()
+            ing.finish()
+            torch.cuda.synchronize()
+            out[f"{mode}_wall_s"] = time.perf_counter() - t0
+            out[f"{mode}_ingestor_s"] = ing.stats.wall_s
+        cs, cp = cats["staged"], cats["pipeline"]
+        check(len(cs) > 1, "the rollover cut sealed one shard")
+        check([vars(m) for m in cs] == [vars(m) for m in cp],
+              "pipeline and staged manifests differ")
+        for m in cs:
+            check(saved_file_bytes(cs.path_of(m.shard_id))
+                  == saved_file_bytes(cp.path_of(m.shard_id)),
+                  f"pipeline shard {m.shard_id} differs from the staged one")
+        out.update(shards=len(cs), shards_identical=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -406,6 +614,62 @@ def card_vs_cpu(serve_args):
             "bytes_identical": True, "chunked_equals_oneshot": True})
     out["archive"] = archive_card_vs_cpu(crops, frames, labels, cheap,
                                          workload, serve_args)
+    out["pipeline"] = pipeline_card_vs_cpu(crops, frames, probs, feats, row,
+                                           serve_args)
+    return out
+
+
+def pipeline_card_vs_cpu(crops, frames, probs, feats, row, serve_args):
+    """The card's pipeline (``topk`` and ``centroid_assign`` kernels), the
+    CPU's pipeline and the CPU's staged path, each fed the same CNN
+    outputs through a lookup forward, save identical bytes; the two
+    pipelines' sinks hold identical top-K."""
+    import numpy as np
+    import torch
+    from repro_torch.common.device import resolve_device
+    from repro_torch.core.ingest import IngestConfig, ingest
+    from repro_torch.core.pipeline import IngestPipeline, staged_cheap_apply
+
+    def lookup(name):
+        dev = resolve_device(name)
+        tp = torch.from_numpy(probs).to(dev)
+        tf = torch.from_numpy(feats).to(dev)
+
+        def forward(x):           # pad rows (zero crops) read row 0
+            ix = [row.get(c.tobytes(), 0) for c in x.cpu().numpy()]
+            ix = torch.tensor(ix, dtype=torch.int64, device=dev)
+            return tp[ix], tf[ix]
+        return forward
+
+    out = []
+    for cfg in (IngestConfig(K=serve_args["K"], threshold=serve_args["T"]),
+                IngestConfig(K=serve_args["K"], threshold=serve_args["T"],
+                             max_clusters=16, high_water=0.8,
+                             evict_frac=0.5)):
+        saved, sinks = {}, {}
+        for name, dev in (("cuda", "cuda"), ("cpu", "cpu")):
+            got = []
+            pipe = IngestPipeline(lookup(dev), cfg, device=dev,
+                                  topk_sink=lambda *a: got.append(
+                                      [np.array(x) for x in a]))
+            index, stats = ingest(crops, frames, None, 0.0, cfg,
+                                  n_local_classes=1000, device=dev,
+                                  pipeline=pipe)
+            saved[name] = index.save_bytes()
+            sinks[name] = [np.concatenate([g[i] for g in got])
+                           for i in range(3)]
+        staged, _ = ingest(crops, frames,
+                           staged_cheap_apply(lookup("cpu"), cfg, "cpu"),
+                           0.0, cfg, n_local_classes=1000, device="cpu")
+        check(saved["cuda"] == saved["cpu"] == staged.save_bytes(),
+              "pipeline indexes differ (card, CPU, CPU staged)")
+        check(all((a == b).all() for a, b in zip(sinks["cuda"],
+                                                 sinks["cpu"])),
+              "the card's and the CPU's sinks differ")
+        out.append({"max_clusters": cfg.max_clusters,
+                    "evictions": stats.n_evictions,
+                    "sunk_rows": int(len(sinks["cpu"][0])),
+                    "bytes_identical": True, "sinks_identical": True})
     return out
 
 
@@ -548,10 +812,12 @@ def main():
               "a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
+    from repro_torch.common.config import CHEAP_CNNS
     from repro_torch.common.device import resolve_device
     from repro_torch.data.video import get_stream
     from repro_torch.hopper import build, ops, ref
     from repro_torch.launch import serve
+    from repro_torch.models import cnn
 
     # -- phase 1: the card and the build --------------------------------------
     smi = subprocess.run(
@@ -572,7 +838,13 @@ def main():
     # -- phase 2: kernels against plain versions ------------------------------
     crops, frames = get_stream("jacksonh", duration_s=10,
                                fps=30).objects_array()[:2]
-    ca, pm, pm_gate, dq = kernel_phase(ops, ref, dev, (crops, frames), peaks)
+    # the serve path's CNN: full-width cheap1 from seeded random weights
+    mcfg = CHEAP_CNNS["cheap1"]
+    forward = cnn.make_forward(cnn.build(mcfg, cnn.init_params(mcfg, seed=0),
+                                         dev))
+    probs = forward(torch.from_numpy(crops[:512]).to(dev))[0].contiguous()
+    ca, pm, pm_gate, dq, tk = kernel_phase(ops, ref, dev, (crops, frames),
+                                           probs, peaks)
     emit({"phase": "kernels", "gpu": smi, "pixel_match_gate_shape": pm_gate,
           "elapsed_s": elapsed()})
 
@@ -614,7 +886,9 @@ def main():
     with tempfile.TemporaryDirectory() as arch:
         archive_argv = argv + ["--archive", arch, "--shard-objects", "2048",
                                "--stream-chunks", "8"]
-        report, archive = drive("archive", archive_argv, tuple(ops.LAUNCHES))
+        report, archive = drive("archive", archive_argv,
+                                ("centroid_assign", "pixel_match",
+                                 "dequant_topk"))
         check(report["shards"] > 1, "the archive path sealed one shard")
         with open(os.path.join(arch, "catalog.json")) as f:
             shards = json.load(f)["shards"]
@@ -624,10 +898,15 @@ def main():
                               serve_args["K"], peaks)
     entry["max_abs_err"] = max(entry["max_abs_err"], dq["max_abs_err"])
     dq.update(entry)
+    pipe = pipeline_path(ops, forward, mcfg, serve_args, duration)
+    emit({"phase": "pipeline_path", "gpu": smi, **pipe,
+          "elapsed_s": elapsed()})
     for entry in (ca, pm):
         entry["launches"] = oneshot[entry["name"]]
         entry["launches_archive"] = archive[entry["name"]]
+        entry["launches_pipeline"] = pipe["launches"][entry["name"]]
     dq["launches"] = archive["dequant_topk"]
+    tk["launches"] = pipe["launches"]["topk"]
 
     # -- phase 4: card against CPU --------------------------------------------
     emit({"phase": "card_vs_cpu", **card_vs_cpu(serve_args),
@@ -636,7 +915,7 @@ def main():
           "elapsed_s": elapsed()})
     check(elapsed() < LIMIT_S, f"over the {LIMIT_S} s limit")
 
-    emit({"kernels": [ca, pm, dq]})
+    emit({"kernels": [ca, pm, dq, tk]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

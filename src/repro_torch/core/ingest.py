@@ -89,7 +89,8 @@ def ingest(crops: np.ndarray, frames: np.ndarray,
            cheap_flops_per_image: float, cfg: IngestConfig,
            class_map: Optional[ClassMap] = None,
            n_local_classes: Optional[int] = None,
-           device: DeviceLike = "cuda") -> Tuple[TopKIndex, IngestStats]:
+           device: DeviceLike = "cuda",
+           pipeline=None) -> Tuple[TopKIndex, IngestStats]:
     """Build the top-K index for a stream of detected objects — the
     one-shot (single-chunk) wrapper over ``streaming.StreamingIngestor``.
 
@@ -97,10 +98,15 @@ def ingest(crops: np.ndarray, frames: np.ndarray,
     numpy. Objects are processed in (stable) frame order, and a chunked
     ``StreamingIngestor`` run over the same stream saves a byte-identical
     index.
+
+    With ``pipeline`` (a ``core.pipeline.IngestPipeline`` on ``device``)
+    the CNN + clustering fast path runs as the fused megastep instead of
+    host-staged ``cheap_apply`` calls; pass ``cheap_apply=None`` then.
     """
     from repro_torch.core.streaming import StreamingIngestor
     ing = StreamingIngestor(cheap_apply, cheap_flops_per_image, cfg,
                             class_map=class_map,
-                            n_local_classes=n_local_classes, device=device)
+                            n_local_classes=n_local_classes, device=device,
+                            pipeline=pipeline)
     ing.feed(np.asarray(crops), np.asarray(frames, np.int64))
     return ing.finish()

@@ -26,7 +26,10 @@ root's batch has folded and publishes an ``IngestDelta`` naming the
 new/moved clusters, which is exactly what a ``QueryEngine`` needs to
 ``prefetch`` so warm queries between chunks stay off the GT-CNN path.
 
-Pixel differencing and clustering run on the ingestor's ``device``.
+Pixel differencing and clustering run on the ingestor's ``device``. With
+a ``core.pipeline.IngestPipeline`` the CNN and clustering of every batch
+run as the fused, double-buffered megastep instead of host-staged
+``cheap_apply`` calls; the saved bytes are the same.
 """
 from __future__ import annotations
 
@@ -279,7 +282,12 @@ class StreamingIngestor:
     byte-identical to a one-shot ``ingest()`` of its window (the rollover
     invariant; ``ShardMeta.obj_base`` maps ids back to global positions).
     ``finish()`` seals the tail shard. Sealing drains the tail batch
-    through ``cheap_apply``, so a catalog needs one.
+    through the CNN, so a catalog needs ``cheap_apply`` or ``pipeline``.
+
+    ``pipeline`` (a ``core.pipeline.IngestPipeline`` on the same
+    ``device``) replaces ``cheap_apply``: pass one or the other. The
+    ingestor binds the pipeline last, so a constructor that raises leaves
+    it unbound.
     """
 
     def __init__(self, cheap_apply: Optional[Callable],
@@ -290,10 +298,15 @@ class StreamingIngestor:
                  catalog=None, shard_objects: Optional[int] = None,
                  shard_frames: Optional[int] = None,
                  shard_format: Optional[int] = None,
-                 device: DeviceLike = "cuda"):
-        if catalog is not None and cheap_apply is None:
-            raise ValueError("shard rollover needs cheap_apply: sealing "
-                             "drains the tail batch through the CNN")
+                 device: DeviceLike = "cuda", pipeline=None):
+        if pipeline is not None and cheap_apply is not None:
+            raise ValueError(
+                "pass either cheap_apply (host-staged) or pipeline "
+                "(fused megastep), not both")
+        if catalog is not None and cheap_apply is None and pipeline is None:
+            raise ValueError("shard rollover needs cheap_apply or a "
+                             "pipeline: sealing drains the tail batch "
+                             "through the CNN")
         if catalog is None and (shard_objects is not None
                                 or shard_frames is not None):
             raise ValueError("shard_objects/shard_frames need a catalog")
@@ -304,6 +317,7 @@ class StreamingIngestor:
         if shard_format is not None and catalog is None:
             raise ValueError("shard_format needs a catalog")
         self.cheap_apply = cheap_apply
+        self.pipeline = pipeline
         self.cheap_flops_per_image = cheap_flops_per_image
         self.cfg = cfg if cfg is not None else IngestConfig()
         self.class_map = class_map
@@ -373,6 +387,10 @@ class StreamingIngestor:
             last = catalog.shards[-1]
             self._shard_obj_base = last.obj_base + last.n_objects
             self._max_frame = last.frame_hi
+        if pipeline is not None:
+            # bind last: a constructor rejected above must not consume
+            # the pipeline (binding is permanent per stream)
+            pipeline._bind(self)
 
     # -- queryable state -------------------------------------------------------
 
@@ -564,12 +582,27 @@ class StreamingIngestor:
         self._gate.admit(flat[~hit], ids[uniq][~hit])
         return roots
 
+    def take_ready_batch(self):
+        """Pop one full CNN batch of buffered uniques."""
+        return self._buf.take(self.cfg.batch_size)
+
+    def take_tail(self):
+        """Pop the remaining partial batch; empty arrays when nothing is
+        buffered."""
+        return self._buf.take(len(self._buf))
+
     def _drain_ready(self):
-        b = self.cfg.batch_size
         while self.n_ready_batches:
-            self._fold_crops(*self._buf.take(b))
+            self._fold_crops(*self.take_ready_batch())
 
     def _fold_crops(self, crops, objs, frames):
+        """Fold one CNN batch (a ready batch or the ragged tail) through
+        whichever path drives this ingestor. The pipeline double-buffers:
+        each submit dispatches the megastep, then host-folds the previous
+        batch."""
+        if self.pipeline is not None:
+            self.pipeline.submit(crops, objs, frames)
+            return
         t0 = time.perf_counter()
         probs, feats = self.cheap_apply(crops)
         self.stats.wall_s += time.perf_counter() - t0
@@ -664,7 +697,9 @@ class StreamingIngestor:
         byte-identical to a one-shot ``ingest()`` of its window."""
         self._drain_ready()
         if len(self._buf):
-            self._fold_crops(*self._buf.take(len(self._buf)))
+            self._fold_crops(*self.take_tail())
+        if self.pipeline is not None:
+            self.pipeline.flush_pending()
         if self._index is None:
             self._index = self._empty_index()
         self._attach_eligible()
@@ -704,6 +739,8 @@ class StreamingIngestor:
         self._shard_frame_lo = None
         self._shard_frame_hi = None
         self._shard_window_end = None
+        if self.pipeline is not None:
+            self.pipeline.reset()
         return meta
 
     # -- publication -----------------------------------------------------------
@@ -755,6 +792,8 @@ class StreamingIngestor:
         refresh. Does NOT fold the partial unique batch — the batch
         partition must stay a function of the stream alone (that is what
         makes chunked and one-shot ingests identical)."""
+        if self.pipeline is not None:
+            self.pipeline.flush_pending()     # publication barrier
         t0 = time.perf_counter()
         self._attach_eligible()
         self._prune_root_cids()
@@ -793,7 +832,9 @@ class StreamingIngestor:
             return self._index, self.stats
         self._drain_ready()
         if len(self._buf):
-            self._fold_crops(*self._buf.take(len(self._buf)))
+            self._fold_crops(*self.take_tail())
+        if self.pipeline is not None:
+            self.pipeline.flush_pending()
         if self._index is None:          # empty stream: class width from the
             self._index = self._empty_index()   # class map, never dropped
         self._attach_eligible()

@@ -3,9 +3,10 @@ a plain C interface, bound with ``ctypes``.
 
 The library is built at first use into ``build/hopper/`` at the root of
 the checkout and named by a hash of the sources and the flags, so an edit
-to any ``csrc/*.cu`` file rebuilds it and a stale library is never
-loaded. Each source compiles to an object in its own ``nvcc`` process,
-all started together, and one more ``nvcc`` links them. Nothing here runs
+to any ``csrc/*.cu`` or ``csrc/*.cuh`` file rebuilds it and a stale
+library is never loaded. Each source compiles to an object in its own
+``nvcc`` process, all started together, and one more ``nvcc`` links them
+(the ``.cuh`` headers are included, not compiled). Nothing here runs
 at import time: the CPU tests import this module without a toolkit.
 """
 from __future__ import annotations
@@ -35,6 +36,7 @@ _SIGNATURES = {
                            _int, _float, _vp),
     "dequant_topk_launch": (_vp, _int, _vp, _float, _vp, _vp, _int, _int,
                             _int, _vp),
+    "topk_launch": (_vp, _vp, _vp, _int, _int, _int, _vp),
 }
 
 _lock = threading.Lock()
@@ -59,7 +61,7 @@ def _sources():
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

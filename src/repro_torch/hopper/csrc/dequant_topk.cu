@@ -18,17 +18,13 @@
 //
 // Design (simple and exact first):
 //  * one block per row; the row is dequantized once into shared memory as
-//    fp32 (C = 1000 is 4 KB; C above kMaxC, 48 KB of fp32, is refused by
-//    the wrapper rather than served another way). The TPU kernel's k
+//    fp32 (C = 1000 is 4 KB; C above kRankMaxC, 48 KB of fp32, is refused
+//    by the wrapper rather than served another way). The TPU kernel's k
 //    passes of max-extract-and-mask are not carried over: they are k
 //    sequential block reductions;
-//  * rank by counting: each thread takes up to kPer columns c and counts
-//    rank(c) = #{j : v_j > v_c or (v_j == v_c and j < c)}. The ranks are
-//    a permutation of 0..C-1 whatever the ties (uint8 quantization makes
-//    many), so each output slot r < k is written exactly once, by the
-//    column of rank r: exact, deterministic, no sentinel and no second
-//    pass. Every thread reads the same v_j at the same step, a shared
-//    memory broadcast; the cost is C^2 compares per row, ~1e6 at C = 1000;
+//  * rank by counting (rank_topk.cuh, shared with topk.cu): quantization
+//    makes many ties, and the rank count sends them to the lowest column
+//    exactly, with no sentinel and no second pass;
 //  * the scale is sg * s_row and the value q * scale, each one fp32
 //    multiply in that order (__fmul_rn, and the library is built without
 //    --use_fast_math), which is the op order of the TPU kernel and of the
@@ -38,14 +34,15 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "rank_topk.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPer = 4;                      // columns per thread per pass
-constexpr int kMaxC = 48 * 1024 / 4;  // fp32 row in 48 KB (ops.DEQUANT_MAX_C)
+using hopper::kRankMaxC;
+using hopper::kRankThreads;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRankThreads)
 dequant_topk_kernel(const T* __restrict__ q, const float* __restrict__ scales,
                     float sg, int C, int k, float* __restrict__ vals,
                     int* __restrict__ idx) {
@@ -53,37 +50,11 @@ dequant_topk_kernel(const T* __restrict__ q, const float* __restrict__ scales,
   const int row = blockIdx.x;
   const T* qr = q + (size_t)row * C;
   const float s = __fmul_rn(sg, scales[row]);
-  for (int c = threadIdx.x; c < C; c += kThreads)
+  for (int c = threadIdx.x; c < C; c += kRankThreads)
     v[c] = __fmul_rn((float)qr[c], s);
   __syncthreads();
-
-  float* vr = vals + (size_t)row * k;
-  int* ir = idx + (size_t)row * k;
-  for (int base = 0; base < C; base += kThreads * kPer) {
-    int cc[kPer];
-    float vc[kPer];
-    int rank[kPer];
-#pragma unroll
-    for (int t = 0; t < kPer; ++t) {
-      cc[t] = base + t * kThreads + threadIdx.x;
-      vc[t] = cc[t] < C ? v[cc[t]] : 0.0f;
-      rank[t] = 0;
-    }
-#pragma unroll 4
-    for (int j = 0; j < C; ++j) {
-      const float vj = v[j];
-#pragma unroll
-      for (int t = 0; t < kPer; ++t)
-        rank[t] += (vj > vc[t]) | ((vj == vc[t]) & (j < cc[t]));
-    }
-#pragma unroll
-    for (int t = 0; t < kPer; ++t) {
-      if (cc[t] < C && rank[t] < k) {
-        vr[rank[t]] = vc[t];
-        ir[rank[t]] = cc[t];
-      }
-    }
-  }
+  hopper::rank_topk_row(v, C, k, vals + (size_t)row * k,
+                        idx + (size_t)row * k);
 }
 
 }  // namespace
@@ -92,14 +63,14 @@ extern "C" int dequant_topk_launch(const void* q, int is_signed,
                                    const float* scales, float sg, float* vals,
                                    int* idx, int M, int C, int k,
                                    void* stream) {
-  if (C > kMaxC) return (int)cudaErrorInvalidValue;
+  if (C > kRankMaxC) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = (size_t)C * sizeof(float);
   if (is_signed) {
-    dequant_topk_kernel<int8_t><<<M, kThreads, smem, st>>>(
+    dequant_topk_kernel<int8_t><<<M, kRankThreads, smem, st>>>(
         static_cast<const int8_t*>(q), scales, sg, C, k, vals, idx);
   } else {
-    dequant_topk_kernel<uint8_t><<<M, kThreads, smem, st>>>(
+    dequant_topk_kernel<uint8_t><<<M, kRankThreads, smem, st>>>(
         static_cast<const uint8_t*>(q), scales, sg, C, k, vals, idx);
   }
   return (int)cudaGetLastError();

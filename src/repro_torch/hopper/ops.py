@@ -16,11 +16,12 @@ import torch
 
 from repro_torch.hopper import build, ref
 
-LAUNCHES = {"centroid_assign": 0, "pixel_match": 0, "dequant_topk": 0}
+LAUNCHES = {"centroid_assign": 0, "pixel_match": 0, "dequant_topk": 0,
+            "topk": 0}
 
-# widest row the dequant_topk kernel ranks: its fp32 copy of one row lives
-# in 48 KB of shared memory (kMaxC in csrc/dequant_topk.cu)
-DEQUANT_MAX_C = 48 * 1024 // 4
+# widest row the dequant_topk and topk kernels rank: their fp32 copy of one
+# row lives in 48 KB of shared memory (kRankMaxC in csrc/rank_topk.cuh)
+DEQUANT_MAX_C = TOPK_MAX_C = 48 * 1024 // 4
 
 
 def reset_launches():
@@ -186,4 +187,41 @@ def dequant_topk(q: torch.Tensor, scales: torch.Tensor, k: int, *,
         vals.data_ptr(), idx.data_ptr(), M, C, k, _stream(dev))
     _raise_on(err, "dequant_topk")
     LAUNCHES["dequant_topk"] += 1
+    return vals, idx
+
+
+def topk(x: torch.Tensor, k: int):
+    """x (B, C) f32 -> (values (B, k) f32, indices (B, k) i32), descending.
+
+    Each row's k largest values with ties to the LOWEST column; the values
+    are the input bits. ``k > C`` (or ``k < 1``) raises: there are only C
+    columns to rank. ``B == 0`` gives empty outputs without a launch.
+    Inputs must be 2-D float32 and hold no NaN."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (B, C), got {tuple(x.shape)}")
+    B, C = x.shape
+    if not 1 <= k <= C:
+        raise ValueError(
+            f"k must be in [1, C={C}], got {k}: the top-k of a (B, {C}) "
+            f"matrix has at most {C} entries per row")
+    if x.dtype != torch.float32:
+        raise ValueError(f"topk takes float32, got {x.dtype}")
+    if x.device.type == "cpu":
+        return ref.topk_ref(x, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    dev = x.device
+    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B == 0:
+        return vals, idx
+    if not x.is_contiguous():
+        raise ValueError("topk: the kernel takes contiguous rows")
+    if C > TOPK_MAX_C:
+        raise ValueError(f"topk: C={C} exceeds the kernel's {TOPK_MAX_C} "
+                         f"columns (one fp32 row in 48 KB of shared memory)")
+    err = build.load().topk_launch(x.data_ptr(), vals.data_ptr(),
+                                   idx.data_ptr(), B, C, k, _stream(dev))
+    _raise_on(err, "topk")
+    LAUNCHES["topk"] += 1
     return vals, idx

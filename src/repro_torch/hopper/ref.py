@@ -16,7 +16,8 @@ alike:
 * ``dequant_topk_ref`` dequantizes as ``q * (sg * scale_row)``, each
   product one fp32 multiply in that order (the TPU kernel's and the eager
   v4 loader's op order), and ranks with a stable descending sort, so ties
-  go to the lowest column as in the CUDA kernel's rank count.
+  go to the lowest column as in the CUDA kernel's rank count;
+* ``topk_ref`` ranks the rows with the same stable descending sort.
 """
 from __future__ import annotations
 
@@ -85,5 +86,14 @@ def dequant_topk_ref(q: torch.Tensor, scales: torch.Tensor, k: int,
     sg = torch.as_tensor(global_scale, dtype=torch.float32,
                          device=q.device).reshape(())
     x = q.float() * (sg * scales.float())[:, None]
+    vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
+
+
+def topk_ref(x: torch.Tensor, k: int):
+    """x (B, C) f32 -> (values (B, k) f32, indices (B, k) i32): each row's
+    k largest values, descending, ties to the LOWEST column; the values are
+    the input bits. ``torch.topk`` does not keep that tie rule, so the rows
+    are sorted with ``stable=True``."""
     vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()

@@ -193,6 +193,21 @@ def build(cfg: CheapCNNConfig, tree: dict,
     return params_from_jax(CheapCNN(cfg), tree).to(dev).eval()
 
 
+def make_forward(model: CheapCNN
+                 ) -> Callable[[torch.Tensor], Tuple[torch.Tensor,
+                                                     torch.Tensor]]:
+    """``forward(crops (B, R, R, 3) f32 tensor on the model's device) ->
+    (softmax probs (B, n_classes), feats (B, feature_dim))``, both on that
+    device and without a host copy: the tensor-level forward the fused
+    ingest pipeline runs (the JAX package's traceable ``cheap_fn``)."""
+    def forward(crops: torch.Tensor):
+        with torch.no_grad():
+            logits, feats = model(crops)
+            return torch.softmax(logits, dim=-1), feats
+
+    return forward
+
+
 def make_apply(model: CheapCNN, batch_pad: int = 64
                ) -> Callable[[np.ndarray], Tuple[np.ndarray, np.ndarray]]:
     """``apply(crops (B, R, R, 3) numpy) -> (softmax probs (B, n_classes),
@@ -201,6 +216,7 @@ def make_apply(model: CheapCNN, batch_pad: int = 64
     bucketing), so a ragged tail runs the same kernel shapes."""
     cfg = model.cfg
     dev = next(model.parameters()).device
+    forward = make_forward(model)
 
     def apply(crops: np.ndarray):
         n = len(crops)
@@ -212,9 +228,7 @@ def make_apply(model: CheapCNN, batch_pad: int = 64
             crops = np.concatenate(
                 [crops, np.zeros((pad,) + crops.shape[1:], crops.dtype)])
         x = torch.from_numpy(np.ascontiguousarray(crops, np.float32)).to(dev)
-        with torch.inference_mode():
-            logits, feats = model(x)
-            probs = torch.softmax(logits, dim=-1)
+        probs, feats = forward(x)
         return probs[:n].cpu().numpy(), feats[:n].cpu().numpy()
 
     return apply

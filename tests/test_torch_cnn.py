@@ -83,6 +83,29 @@ def test_make_apply_matches_jax_softmax_and_pads(tmp_path):
     assert e_probs.shape == (0, 1000) and e_feats.shape == (0, 128)
 
 
+def test_make_forward_matches_jax_and_make_apply():
+    """The tensor-level forward the fused pipeline runs gives the JAX
+    package's softmax probs and features (atol 1e-6 / 1e-5, fp32 summed
+    in another order) as tensors, and the same bits as ``make_apply`` at
+    the same batch shape."""
+    jcfg = GENERIC_FAMILY["cheap1"][0]
+    tree = _jax_tree(jcfg, seed=2)
+    model = cnn.build(CHEAP_CNNS["cheap1"], tree, device="cpu")
+    forward = cnn.make_forward(model)
+    images = np.random.default_rng(4).random((8, 32, 32, 3),
+                                             dtype=np.float32)
+    probs, feats = forward(torch.from_numpy(images))
+    assert isinstance(probs, torch.Tensor) and probs.shape == (8, 1000)
+    assert feats.shape == (8, 128) and not probs.requires_grad
+    lj, fj = _jax_forward(tree, jnp.asarray(images), jcfg)
+    np.testing.assert_allclose(probs.numpy(),
+                               np.asarray(jax.nn.softmax(lj, -1)), atol=1e-6)
+    np.testing.assert_allclose(feats.numpy(), np.asarray(fj), atol=1e-5)
+    ap, af = cnn.make_apply(model, batch_pad=8)(images)
+    np.testing.assert_array_equal(ap, probs.numpy())
+    np.testing.assert_array_equal(af, feats.numpy())
+
+
 @pytest.mark.parametrize("size,stride,pads", [
     (32, 2, (0, 1)), (16, 2, (0, 1)), (32, 1, (1, 1)), (7, 2, (1, 1)),
     (4, 1, (1, 1)),

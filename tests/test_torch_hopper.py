@@ -7,8 +7,9 @@ runs them) and the JAX package's numpy matcher. Indices, ``matched`` and
 match decisions must be exact; squared distances agree to rtol 1e-5 (fp32
 products summed in another order) and mean pixel differences to rtol 1e-6.
 ``dequant_topk``'s values and indices must be exact (two fp32 multiplies
-in one order, then a ranking). The interpret-mode ``dequant_topk`` runs k
-passes, so its cases keep k and C small.
+in one order, then a ranking), and so must ``topk``'s (a ranking of the
+input bits). The interpret-mode ``dequant_topk`` and ``topk`` run k
+passes, so their cases keep k and C small.
 The CUDA kernels themselves are held against the plain versions in
 ``test_torch_hopper_cuda.py``, which runs on the card.
 """
@@ -175,8 +176,9 @@ def test_cpu_tensors_take_the_plain_version():
     ops.centroid_assign(torch.ones(4, 8), torch.zeros(3, 8), threshold=1.0)
     ops.pixel_match(torch.ones(4, 8), torch.zeros(3, 8), 0.1)
     ops.dequant_topk(torch.ones(4, 8, dtype=torch.uint8), torch.ones(4), 3)
+    ops.topk(torch.ones(4, 8), 3)
     assert ops.LAUNCHES == {"centroid_assign": 0, "pixel_match": 0,
-                            "dequant_topk": 0}
+                            "dequant_topk": 0, "topk": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -252,3 +254,65 @@ def test_dequant_topk_empty_rows():
 def test_dequant_topk_rejects_bad_inputs(q, scales, k):
     with pytest.raises(ValueError):
         ops.dequant_topk(q, scales, k)
+
+
+# ---------------------------------------------------------------------------
+# topk
+# ---------------------------------------------------------------------------
+
+def _assert_topk_eq(x, k):
+    vals, idx = ops.topk(_t(x), k)
+    assert vals.dtype == torch.float32 and idx.dtype == torch.int32
+    assert vals.shape == idx.shape == (x.shape[0], k)
+    jv, ji = jops.topk(x, k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+    return vals.numpy(), idx.numpy()
+
+
+@pytest.mark.parametrize("B,C,k", [
+    (9, 37, 1), (9, 37, 3), (9, 37, 37), (5, 130, 3), (3, 130, 130),
+    (1, 8, 8), (7, 1000, 3),
+])
+def test_topk_matches_jax(B, C, k):
+    """Random rows with planted ties (a column repeated, one row of equal
+    values, softmax-like probabilities) give the JAX kernel's values and
+    indices exactly."""
+    r = np.random.default_rng(B * C + k)
+    x = r.normal(size=(B, C)).astype(np.float32)
+    x[:, C - 1] = x[:, 0]                     # every row holds a tie
+    x[B // 2] = x[B // 2, 1]                  # a row of equal values
+    if B > 2:
+        e = np.exp(x[2] - x[2].max())
+        x[2] = e / e.sum()                    # a probability row
+    vals, idx = _assert_topk_eq(x, k)
+    order = np.argsort(-x, axis=1, kind="stable")[:, :k]
+    np.testing.assert_array_equal(idx, order)
+    np.testing.assert_array_equal(vals, np.take_along_axis(x, order, 1))
+
+
+def test_topk_ties_go_to_the_lowest_column():
+    x = np.array([[1, 3, 3, 2, 3], [0, 0, 0, 0, 0]], np.float32)
+    _, idx = _assert_topk_eq(x, 3)
+    # torch.topk breaks this rule (it gave [2, 4, 1] on the first row)
+    assert idx.tolist() == [[1, 2, 4], [0, 1, 2]]
+
+
+def test_topk_empty_batch():
+    vals, idx = ops.topk(torch.zeros(0, 12), 4)
+    assert vals.shape == (0, 4) and idx.shape == (0, 4)
+    assert vals.dtype == torch.float32 and idx.dtype == torch.int32
+    jv, ji = jops.topk(np.zeros((0, 12), np.float32), 4)
+    assert np.asarray(jv).shape == np.asarray(ji).shape == (0, 4)
+
+
+@pytest.mark.parametrize("x,k", [
+    (torch.zeros(3, 5), 6),                          # k > C
+    (torch.zeros(3, 5), 0),                          # k < 1
+    (torch.zeros(15), 2),                            # not 2-D
+    (torch.zeros(3, 5, 2), 2),
+    (torch.zeros(3, 5, dtype=torch.float64), 2),     # not float32
+])
+def test_topk_rejects_bad_inputs(x, k):
+    with pytest.raises(ValueError):
+        ops.topk(x, k)

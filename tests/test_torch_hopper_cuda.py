@@ -8,8 +8,9 @@ PyTorch and the CUDA toolkit are installed:
 Without a card every test skips. Indices, ``matched`` and match decisions
 must be exact; squared distances agree to rtol 1e-5 (fp32 dot products
 summed in another order; atol 1e-4 where a distance cancels to ~0) and
-mean pixel differences to rtol 1e-6. ``dequant_topk``'s values and
-indices must be exact.
+mean pixel differences to rtol 1e-6. ``dequant_topk``'s and ``topk``'s
+values and indices must be exact, and so must the saved bytes of the
+fused pipeline against the staged path on the card.
 """
 import numpy as np
 import pytest
@@ -147,3 +148,74 @@ def test_dequant_topk_kernel_empty_and_errors(cuda):
     with pytest.raises(ValueError):
         ops.dequant_topk(torch.zeros(2, 8, dtype=torch.int32, device=cuda),
                          torch.ones(2, device=cuda), 1)
+
+
+def _topk_pair(x, k):
+    before = ops.LAUNCHES["topk"]
+    v, i = ops.topk(x, k)
+    assert ops.LAUNCHES["topk"] == before + (x.shape[0] > 0)
+    vr, ir = ref.topk_ref(x, k)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(i.cpu().numpy(), ir.cpu().numpy())
+    np.testing.assert_array_equal(v.cpu().numpy(), vr.cpu().numpy())
+    return i.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,k,levels", [
+    (512, 1000, 1000, None),             # the pipeline's shape
+    (512, 1000, 1000, 4),                # ties everywhere
+    (64, 1000, 10, None),                # k < C
+    (33, 37, 5, None),                   # ragged C
+    (7, 130, 130, 2),
+    (5, 1, 1, None),
+])
+def test_topk_kernel_matches_plain(cuda, B, C, k, levels):
+    r = np.random.default_rng(B + C + k)
+    x = r.random((B, C), dtype=np.float32)
+    if levels is not None:
+        x = np.floor(x * levels).astype(np.float32)
+    x /= x.sum(1, keepdims=True) + 1
+    x[B // 2] = 0.5                              # a row of equal values
+    _topk_pair(_t(x, cuda), k)
+
+
+@pytest.mark.cuda
+def test_topk_kernel_ties_empty_and_errors(cuda):
+    x = torch.tensor([[1, 3, 3, 2, 3]], dtype=torch.float32, device=cuda)
+    assert _topk_pair(x, 5).tolist() == [[1, 2, 4, 3, 0]]
+    _topk_pair(torch.zeros(0, 1000, device=cuda), 7)    # no launch
+    with pytest.raises(ValueError):
+        ops.topk(torch.zeros(2, ops.TOPK_MAX_C + 1, device=cuda), 1)
+    with pytest.raises(ValueError):
+        ops.topk(torch.zeros(2, 8, device=cuda).T, 1)   # not contiguous
+    with pytest.raises(ValueError):
+        ops.topk(torch.zeros(2, 8, dtype=torch.float16, device=cuda), 1)
+
+
+@pytest.mark.cuda
+def test_pipeline_on_the_card_equals_staged(cuda):
+    """The fused pipeline on the card, with the full cheap1 CNN, saves the
+    staged path's bytes and launches topk once per megastep."""
+    from repro_torch.common.config import CHEAP_CNNS
+    from repro_torch.core.ingest import IngestConfig, ingest
+    from repro_torch.core.pipeline import IngestPipeline, staged_cheap_apply
+    from repro_torch.data.video import get_stream
+    from repro_torch.models import cnn
+
+    crops, frames = get_stream("jacksonh", duration_s=30,
+                               fps=30).objects_array()[:2]
+    mcfg = CHEAP_CNNS["cheap1"]
+    fwd = cnn.make_forward(cnn.build(mcfg, cnn.init_params(mcfg, 0), cuda))
+    cfg = IngestConfig(K=1000, threshold=0.4, batch_size=256)
+    sunk = []
+    pipe = IngestPipeline(fwd, cfg, topk_sink=lambda o, v, i: sunk.append(o))
+    before = ops.LAUNCHES["topk"]
+    piped, p_stats = ingest(crops, frames, None, 0.0, cfg,
+                            n_local_classes=1000, pipeline=pipe)
+    assert ops.LAUNCHES["topk"] - before == pipe.stats.n_batches > 1
+    staged, s_stats = ingest(crops, frames, staged_cheap_apply(fwd, cfg), 0.0,
+                             cfg, n_local_classes=1000)
+    assert piped.save_bytes() == staged.save_bytes()
+    assert p_stats.n_cnn_invocations == s_stats.n_cnn_invocations \
+        == len(np.concatenate(sunk))
