@@ -13,9 +13,12 @@ color pattern + oriented grating; instances jitter around the class
 prototype; per-frame drift is small. This is learnable by the cheap CNN
 family and gives exact generator labels to score the GT-CNN against.
 
-Access path: ``object_stream()`` / ``objects_array()`` — post-detection
-object crops (the paper's metrics count only GPU classification time).
-Full frames for background subtraction come with that slice.
+Two access paths:
+  * ``frames()``        — full frames for the background-subtraction path
+                          (``data.bgsub.BackgroundSubtractor``)
+  * ``object_stream()`` / ``objects_array()`` — post-detection object crops
+                          (the paper's metrics count only GPU classification
+                          time, so the serve path drives this one)
 """
 from __future__ import annotations
 
@@ -154,6 +157,32 @@ class VideoStream:
         tracks = np.array([o.track_id for o in objs])
         labels = np.array([o.true_class for o in objs])
         return crops, frames, tracks, labels
+
+    # -- full-frame path (for background subtraction) --------------------------
+
+    def frames(self, max_frames: Optional[int] = None) -> Iterator[np.ndarray]:
+        cfg = self.cfg
+        n = min(cfg.n_frames, max_frames or cfg.n_frames)
+        rng = np.random.default_rng(cfg.seed + 2)
+        bg_rng = np.random.default_rng(cfg.seed + 3)
+        bg = bg_rng.uniform(0.2, 0.5, size=(cfg.frame_res, cfg.frame_res, 3)
+                            ).astype(np.float32)
+        by_frame: List[List[Track]] = [[] for _ in range(n)]
+        for tr in self._tracks:
+            for t in range(tr.t0, min(tr.t1, n)):
+                by_frame[t].append(tr)
+        R, r = cfg.frame_res, cfg.obj_res
+        for t in range(n):
+            frame = bg + rng.normal(0, 0.01, bg.shape).astype(np.float32)
+            for tr in by_frame[t]:
+                dt = t - tr.t0
+                x = tr.x0 + tr.vx * dt
+                y = tr.y0 + tr.vy * dt
+                xi = int(np.clip(x, 0, 1 - r / R) * R)
+                yi = int(np.clip(y, 0, 1 - r / R) * R)
+                drift = rng.normal(0, cfg.drift, tr.proto.shape)
+                frame[yi:yi + r, xi:xi + r] = np.clip(tr.proto + drift, 0, 1)
+            yield np.clip(frame, 0, 1)
 
 
 # The 13-stream zoo used in benchmarks (traffic / surveillance / news mix,

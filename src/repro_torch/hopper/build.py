@@ -37,6 +37,8 @@ _SIGNATURES = {
     "dequant_topk_launch": (_vp, _int, _vp, _float, _vp, _vp, _int, _int,
                             _int, _vp),
     "topk_launch": (_vp, _vp, _vp, _int, _int, _int, _vp),
+    "motion_gate_launch": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
+                           _float, _float, _vp),
 }
 
 _lock = threading.Lock()

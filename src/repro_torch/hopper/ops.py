@@ -17,7 +17,7 @@ import torch
 from repro_torch.hopper import build, ref
 
 LAUNCHES = {"centroid_assign": 0, "pixel_match": 0, "dequant_topk": 0,
-            "topk": 0}
+            "topk": 0, "motion_gate": 0}
 
 # widest row the dequant_topk and topk kernels rank: their fp32 copy of one
 # row lives in 48 KB of shared memory (kRankMaxC in csrc/rank_topk.cuh)
@@ -225,3 +225,51 @@ def topk(x: torch.Tensor, k: int):
     _raise_on(err, "topk")
     LAUNCHES["topk"] += 1
     return vals, idx
+
+
+def motion_gate(frame: torch.Tensor, bg: torch.Tensor, alpha, threshold, *,
+                tile: int = 8):
+    """frame/bg (H, W, 3) f32 -> (new_bg (H, W, 3) f32, tiles (ty, tx) f32,
+    hot (ty, tx) bool) where ty = H // tile, tx = W // tile.
+
+    One fused pass per frame: the EMA background update
+    ``(1 - alpha) * bg + alpha * frame`` over EVERY pixel, remainder rows
+    and columns included; the mean of ``|frame - bg|`` over each complete
+    (tile, tile) tile and its 3 channels; and the strict
+    ``tiles > threshold`` hot mask. A frame smaller than one tile still
+    launches (the EMA only) and gives an empty tile grid. ``alpha`` and
+    ``threshold`` are taken as fp32 and passed by value: no host sync,
+    no rebuild per value."""
+    if tile < 1:
+        raise ValueError(f"tile must be >= 1, got {tile}")
+    if frame.dim() != 3 or frame.shape[2] != 3 or frame.shape != bg.shape:
+        raise ValueError(f"frame and bg must both be (H, W, 3), got "
+                         f"{tuple(frame.shape)} and {tuple(bg.shape)}")
+    if frame.device != bg.device:
+        raise ValueError(f"frame/bg lie on {frame.device} and {bg.device}")
+    if frame.device.type == "cpu":
+        return ref.motion_gate_ref(frame, bg, alpha, threshold, tile)
+    if frame.device.type != "cuda":
+        raise ValueError(f"unsupported device {frame.device}")
+    for t in (frame, bg):
+        if t.dtype != torch.float32:
+            raise ValueError(f"motion_gate: the kernel takes float32, got "
+                             f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("motion_gate: the kernel takes contiguous "
+                             "frames")
+    H, W = frame.shape[:2]
+    if H == 0 or W == 0:
+        raise ValueError(f"motion_gate: empty frame {tuple(frame.shape)}")
+    ty, tx = H // tile, W // tile
+    dev = frame.device
+    new_bg = torch.empty_like(frame)
+    tiles = torch.empty((ty, tx), dtype=torch.float32, device=dev)
+    hot = torch.empty((ty, tx), dtype=torch.bool, device=dev)
+    err = build.load().motion_gate_launch(
+        frame.data_ptr(), bg.data_ptr(), new_bg.data_ptr(), tiles.data_ptr(),
+        hot.data_ptr(), H, W, tile, float(np.float32(alpha)),
+        float(np.float32(threshold)), _stream(dev))
+    _raise_on(err, "motion_gate")
+    LAUNCHES["motion_gate"] += 1
+    return new_bg, tiles, hot

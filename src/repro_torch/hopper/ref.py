@@ -17,7 +17,11 @@ alike:
   product one fp32 multiply in that order (the TPU kernel's and the eager
   v4 loader's op order), and ranks with a stable descending sort, so ties
   go to the lowest column as in the CUDA kernel's rank count;
-* ``topk_ref`` ranks the rows with the same stable descending sort.
+* ``topk_ref`` ranks the rows with the same stable descending sort;
+* ``motion_gate_ref`` rounds each product and the sum of the EMA
+  separately, as the CUDA kernel does, and sums each tile's ``|f - bg|``
+  in fp64 before rounding its mean to fp32 once (see
+  ``csrc/motion_gate.cu``).
 """
 from __future__ import annotations
 
@@ -97,3 +101,27 @@ def topk_ref(x: torch.Tensor, k: int):
     are sorted with ``stable=True``."""
     vals, idx = torch.sort(x, dim=1, descending=True, stable=True)
     return vals[:, :k].contiguous(), idx[:, :k].to(torch.int32).contiguous()
+
+
+def motion_gate_ref(frame: torch.Tensor, bg: torch.Tensor, alpha, threshold,
+                    tile: int):
+    """frame/bg (H, W, 3) f32 -> (new_bg (H, W, 3) f32, tiles (ty, tx) f32,
+    hot (ty, tx) bool) with ty = H // tile, tx = W // tile.
+
+    One ``BackgroundSubtractor`` step: the EMA background update
+    ``(1 - alpha) * bg + alpha * frame`` over every pixel, the mean of
+    ``|frame - bg|`` over each complete (tile, tile) tile and its 3
+    channels (remainder rows and columns belong to no tile), and the
+    strict ``tiles > threshold`` hot mask. ``alpha`` and ``threshold`` are
+    taken as fp32."""
+    a = torch.as_tensor(alpha, dtype=torch.float32,
+                        device=frame.device).reshape(())
+    f, b = frame.float(), bg.float()
+    new_bg = (1 - a) * b + a * f
+    H, W = f.shape[:2]
+    ty, tx = H // tile, W // tile
+    d = (f[:ty * tile, :tx * tile] - b[:ty * tile, :tx * tile]).abs()
+    s = d.double().reshape(ty, tile, tx, tile * 3).sum((1, 3))
+    tiles = (s / (3 * tile * tile)).float()
+    thr = torch.as_tensor(threshold, dtype=torch.float32, device=f.device)
+    return new_bg, tiles, tiles > thr

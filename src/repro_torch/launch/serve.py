@@ -1,8 +1,9 @@
 """Multi-tenant Focus serving entry point on the card (the paper's deployment
 shape, §5).
 
-One stream: generate it, build the cheap CNN, ingest it (pixel
-differencing -> cheap CNN -> fused clustering -> top-K index), then serve
+Per stream: sample -> GT-label -> specialize cheap CNNs -> parameter
+selection (§4.4) -> ingest (pixel differencing -> cheap CNN -> fused
+clustering -> top-K index) -> serve
 ``--rounds`` rounds in which ``--tenants`` tenants each submit the
 stream's dominant-class workload through a ``QueryService``: a continuous
 batcher merges every in-flight request into ONE ``query_many`` / GT pass
@@ -12,13 +13,22 @@ per-tenant latency percentiles are reported at the end.
   python -m repro_torch.launch.serve --stream jacksonh --duration 60 \\
       --fps 30 --tenants 4 --rounds 3
 
-The cheap CNN is ``--model`` (default ``cheap1``) with weights drawn from
-``--seed``, or loaded with ``--weights FILE.npz`` (a JAX parameter tree
-saved as numpy, see ``models.cnn.save_npz_params``). The ingest
-parameters are given directly (``--K``, ``--T``): §4.4 parameter
-selection trains models and is not ported yet. The GT-CNN is the
-stream's exact prototype oracle (``data.video.gt_oracle``). Everything
-runs on ``--device`` (default ``cuda``).
+By default the path is the JAX package's: the three specialized cheap
+CNNs ``spec1``-``spec3`` (``launch.zoo``) are trained on the stream's
+top ``--ls`` classes + OTHER for ``--steps`` steps (or loaded from the
+zoo's cache), ``core.params.sweep`` evaluates every (model, K in {1,2,4},
+T in {0.5,0.8}) against the generator's labels, and ``select`` picks one
+by ``--policy`` (the best recall when no configuration is viable). The
+stream is then ingested with the chosen model, its class map and
+``IngestConfig(K, T, max_clusters=2048)``.
+
+``--K`` and ``--T`` together override the selection: the cheap CNN is
+then ``--model`` (default ``cheap1``) with weights drawn from ``--seed``
+(default 0), or loaded with ``--weights FILE.npz`` (a JAX parameter tree
+saved as numpy, see ``models.cnn.save_npz_params``), and nothing is
+trained. The GT-CNN is the stream's exact prototype oracle
+(``data.video.gt_oracle``). Everything runs on ``--device`` (default
+``cuda``).
 
 With ``--stream-chunks N`` the ingest runs *streaming*: the stream's
 chunks are offered to the service, which arbitrates the device between
@@ -39,7 +49,7 @@ candidates of all shards. Sealed shards are ranked on the card by the
 (``--shard-cache-mb``).
 
   python -m repro_torch.launch.serve --stream jacksonh --duration 600 \\
-      --fps 30 --K 1000 --T 0.4 --archive /tmp/arch --stream-chunks 8
+      --fps 30 --archive /tmp/arch --stream-chunks 8
 """
 from __future__ import annotations
 
@@ -54,10 +64,12 @@ from repro_torch.common.config import CHEAP_CNNS
 from repro_torch.core.archive import ArchiveQueryEngine, ShardCatalog
 from repro_torch.core.engine import QueryEngine
 from repro_torch.core.ingest import IngestConfig, ingest
+from repro_torch.core.params import select, sweep
 from repro_torch.core.query import (dominant_classes, gt_frames_by_class,
                                     precision_recall)
 from repro_torch.core.streaming import StreamingIngestor
 from repro_torch.data.video import get_stream, gt_oracle
+from repro_torch.launch import zoo
 from repro_torch.models import cnn
 from repro_torch.serve import QueryService, ServiceConfig
 
@@ -103,15 +115,16 @@ def _round_line(tag, service, by_tenant, wall, gt_delta):
           f"{service.slo.percentile_s(99.0)*1e3:.1f}ms")
 
 
-def _streaming_ingest(crops, frames, apply_fn, flops, cfg, n_classes,
+def _streaming_ingest(crops, frames, apply_fn, flops, cfg, class_kw,
                       workload, gt_apply, n_chunks, args):
     """Offer the stream's chunks to the service while tenants query
     between chunks from the live, still-growing index (query-while-
     ingest). Returns (index, stats, engine, service) — the engine's
     GT-label cache stays warm for the post-ingest query rounds."""
-    ing = StreamingIngestor(apply_fn, flops, cfg, n_local_classes=n_classes,
-                            device=args.device)
-    engine = QueryEngine(ing.index, gt_apply=gt_apply)
+    ing = StreamingIngestor(apply_fn, flops, cfg, device=args.device,
+                            **class_kw)
+    engine = QueryEngine(ing.index, gt_apply=gt_apply,
+                         gt_flops_per_image=zoo.GT_FLOPS)
     service = _mk_service(engine, args, ingestor=ing)
     bounds = np.linspace(0, len(crops), n_chunks + 1).astype(int)
     for rnd, (lo, hi) in enumerate(zip(bounds, bounds[1:])):
@@ -132,18 +145,19 @@ def _streaming_ingest(crops, frames, apply_fn, flops, cfg, n_classes,
     return index, stats, engine, service
 
 
-def _archive_ingest(crops, frames, apply_fn, flops, cfg, n_classes,
+def _archive_ingest(crops, frames, apply_fn, flops, cfg, class_kw,
                     workload, gt_apply, n_chunks, args):
     """Streaming ingest with shard rollover; merged tenant batches fan out
     across sealed shards + the live index through an
     ``ArchiveQueryEngine``. Returns (catalog, stats, engine, service)."""
     catalog = ShardCatalog.open(args.archive)
-    ing = StreamingIngestor(apply_fn, flops, cfg, n_local_classes=n_classes,
-                            catalog=catalog, shard_objects=args.shard_objects,
-                            device=args.device)
+    ing = StreamingIngestor(apply_fn, flops, cfg, catalog=catalog,
+                            shard_objects=args.shard_objects,
+                            device=args.device, **class_kw)
     cache_kw = ({"capacity": args.shard_cache} if args.shard_cache > 0
                 else {"capacity_bytes": args.shard_cache_mb << 20})
     engine = ArchiveQueryEngine(catalog, gt_apply=gt_apply, ingestor=ing,
+                                gt_flops_per_image=zoo.GT_FLOPS,
                                 device=args.device, **cache_kw)
     service = _mk_service(engine, args, ingestor=ing)
     bounds = np.linspace(0, len(crops), n_chunks + 1).astype(int)
@@ -168,15 +182,28 @@ def _archive_ingest(crops, frames, apply_fn, flops, cfg, n_classes,
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stream", default="lausanne")
+    ap.add_argument("--policy", default="balance",
+                    choices=["balance", "opt_ingest", "opt_query"],
+                    help="§4.4 selection policy over the swept configs")
     ap.add_argument("--duration", type=int, default=60)
     ap.add_argument("--fps", type=int, default=10)
-    ap.add_argument("--model", default="cheap1", choices=sorted(CHEAP_CNNS))
-    ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the cheap CNN's random weights")
+    ap.add_argument("--ls", type=int, default=6,
+                    help="classes each specialized CNN keeps (+ OTHER)")
+    ap.add_argument("--steps", type=int, default=150,
+                    help="training steps of each specialized CNN")
+    ap.add_argument("--K", type=int, default=None,
+                    help="override: ingest with this K (needs --T) and the "
+                         "--model CNN instead of selecting")
+    ap.add_argument("--T", type=float, default=None,
+                    help="override: ingest with this threshold (needs --K)")
+    ap.add_argument("--model", default=None, choices=sorted(CHEAP_CNNS),
+                    help="override only: the cheap CNN (default cheap1)")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="override only: seed of the cheap CNN's random "
+                         "weights (default 0)")
     ap.add_argument("--weights", default=None, metavar="FILE.npz",
-                    help="load the cheap CNN's JAX parameters saved as numpy")
-    ap.add_argument("--K", type=int, default=IngestConfig.K)
-    ap.add_argument("--T", type=float, default=IngestConfig.threshold)
+                    help="override only: load the cheap CNN's JAX "
+                         "parameters saved as numpy")
     ap.add_argument("--rounds", type=int, default=3,
                     help="query-workload rounds (round 1 is cold, the rest "
                          "exercise the warm GT-label cache)")
@@ -217,7 +244,56 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "shard heap state (ignored when --shard-cache > 0)")
     ap.add_argument("--index-out", default=None)
     ap.add_argument("--device", default="cuda")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if (args.K is None) != (args.T is None):
+        ap.error("--K and --T override the selection together: give both "
+                 "or neither")
+    if args.K is None and (args.model is not None or args.seed is not None
+                           or args.weights is not None):
+        ap.error("--model, --seed and --weights belong to the --K/--T "
+                 "override")
+    return args
+
+
+def _select(args, crops, frames, labels):
+    """§4.4: train (or load) the specialized family, sweep (model, K, T),
+    select by ``--policy``. Returns (apply_fn, accounted flops, class map,
+    IngestConfig, report)."""
+    models, cmaps, trained = {}, {}, {}
+    for mid in zoo.SPECIALIZED_FAMILY:
+        apply_fn, acc_flops, cmap = zoo.get_model(
+            args.stream, mid, crops, labels, args.duration, steps=args.steps,
+            Ls=args.ls, device=args.device)
+        models[mid] = (apply_fn, acc_flops)
+        cmaps[mid] = cmap
+        trained[mid] = {"train_s": apply_fn.train_s,
+                        "history": apply_fn.history}
+        if apply_fn.history:
+            h0, h1 = apply_fn.history[0], apply_fn.history[-1]
+            print(f"[serve] trained {mid} in {apply_fn.train_s:.1f}s: loss "
+                  f"{h0['loss']:.3f} -> {h1['loss']:.3f}, acc "
+                  f"{h0['acc']:.3f} -> {h1['acc']:.3f}")
+        else:
+            print(f"[serve] loaded {mid} from the model cache")
+    t0 = time.perf_counter()
+    evals = sweep(crops, frames, labels, models, Ks=[1, 2, 4], Ts=[0.5, 0.8],
+                  gt_flops=zoo.GT_FLOPS, class_maps=cmaps, max_clusters=2048,
+                  device=args.device)
+    sweep_s = time.perf_counter() - t0
+    choice = select(evals, args.policy) or max(
+        evals, key=lambda e: (e.recall, e.precision))
+    print(f"[serve] policy={args.policy} -> model={choice.candidate.model_id}"
+          f" K={choice.candidate.K} T={choice.candidate.T} "
+          f"(P={choice.precision:.3f} R={choice.recall:.3f})")
+    mid = choice.candidate.model_id
+    cfg = IngestConfig(K=choice.candidate.K, threshold=choice.candidate.T,
+                       max_clusters=2048)
+    report = {"models": trained, "sweep_s": sweep_s, "policy": args.policy,
+              "choice": {"model": mid, "K": choice.candidate.K,
+                         "T": choice.candidate.T,
+                         "precision": choice.precision,
+                         "recall": choice.recall, "viable": choice.viable}}
+    return models[mid][0], models[mid][1], cmaps[mid], cfg, report
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -229,15 +305,25 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"[serve] stream={args.stream} objects={len(crops)} "
           f"classes={len(np.unique(labels))}")
 
-    mcfg = CHEAP_CNNS[args.model]
-    tree = (cnn.load_npz_params(args.weights) if args.weights
-            else cnn.init_params(mcfg, seed=args.seed))
-    apply_fn = cnn.make_apply(cnn.build(mcfg, tree, device=args.device))
-    cfg = IngestConfig(K=args.K, threshold=args.T)
-    origin = (f"weights {args.weights}" if args.weights
-              else f"seed {args.seed}")
-    print(f"[serve] model={args.model} ({origin}) K={cfg.K} "
-          f"T={cfg.threshold} M={cfg.max_clusters} device={args.device}")
+    if args.K is None:
+        apply_fn, flops, class_map, cfg, selection = _select(
+            args, crops, frames, labels)
+        class_kw = {"class_map": class_map}
+    else:
+        model_id = args.model or "cheap1"
+        mcfg = CHEAP_CNNS[model_id]
+        seed = args.seed if args.seed is not None else 0
+        tree = (cnn.load_npz_params(args.weights) if args.weights
+                else cnn.init_params(mcfg, seed=seed))
+        apply_fn = cnn.make_apply(cnn.build(mcfg, tree, device=args.device))
+        flops = mcfg.flops_per_image()
+        cfg = IngestConfig(K=args.K, threshold=args.T)
+        class_kw = {"n_local_classes": mcfg.n_classes}
+        selection = None
+        origin = (f"weights {args.weights}" if args.weights
+                  else f"seed {seed}")
+        print(f"[serve] model={model_id} ({origin}) K={cfg.K} "
+              f"T={cfg.threshold} M={cfg.max_clusters} device={args.device}")
 
     gt_apply = gt_oracle(labels)
     workload = [int(x) for x in dominant_classes(labels)]
@@ -250,8 +336,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         chunk = max(1, -(-len(crops) // n_chunks))
         cfg = dataclasses.replace(
             cfg, batch_size=max(16, min(cfg.batch_size, chunk)))
-    ingest_args = (crops, frames, apply_fn, mcfg.flops_per_image(), cfg,
-                   mcfg.n_classes, workload, gt_apply, n_chunks, args)
+    ingest_args = (crops, frames, apply_fn, flops, cfg, class_kw, workload,
+                   gt_apply, n_chunks, args)
     t0 = time.perf_counter()
     index = catalog = None
     if args.archive:
@@ -259,11 +345,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     elif args.stream_chunks > 0:
         index, stats, engine, service = _streaming_ingest(*ingest_args)
     else:
-        index, stats = ingest(crops, frames, apply_fn,
-                              mcfg.flops_per_image(), cfg,
-                              n_local_classes=mcfg.n_classes,
-                              device=args.device)
-        engine = QueryEngine(index, gt_apply=gt_apply)
+        index, stats = ingest(crops, frames, apply_fn, flops, cfg,
+                              device=args.device, **class_kw)
+        engine = QueryEngine(index, gt_apply=gt_apply,
+                             gt_flops_per_image=zoo.GT_FLOPS)
         service = _mk_service(engine, args)
     # streaming modes interleave query rounds with the ingest, so their
     # ingest time is the ingestor's own accounted wall
@@ -347,6 +432,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                               "p99_ms": ts.p99_s * 1e3}
     summary = {
         "stream": args.stream, "objects": int(len(crops)),
+        "K": cfg.K, "T": cfg.threshold, "selection": selection,
         "uniques": stats.n_cnn_invocations,
         "pixel_dedup": stats.n_pixel_dedup,
         "clusters": n_clusters, "evictions": stats.n_evictions,

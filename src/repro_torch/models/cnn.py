@@ -15,7 +15,7 @@ package leaves them to XLA too, outside any kernel of its own.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -232,6 +232,33 @@ def make_apply(model: CheapCNN, batch_pad: int = 64
         return probs[:n].cpu().numpy(), feats[:n].cpu().numpy()
 
     return apply
+
+
+def loss_fn(model: CheapCNN, images: torch.Tensor, labels: torch.Tensor,
+            label_weights: Optional[torch.Tensor] = None):
+    """Cross-entropy; optional per-class weights (OTHER-class reweighting,
+    paper footnote 2). Returns ``(loss, {"nll", "acc"})`` as the JAX
+    package does: ``nll`` is the (weighted) mean loss, ``acc`` the top-1
+    accuracy, both detached 0-d tensors on the model's device."""
+    logits, _ = model(images)
+    logp = torch.log_softmax(logits, dim=-1)
+    labels = labels.long()
+    nll = -logp.gather(1, labels[:, None])[:, 0]
+    if label_weights is not None:
+        nll = nll * label_weights[labels]
+    loss = nll.mean()
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return loss, {"nll": loss.detach(), "acc": acc.detach()}
+
+
+def count_params(cfg: CheapCNNConfig) -> int:
+    total = 0
+    for ci, co, s in _plan(cfg):
+        total += 3 * 3 * ci * co + 2 * co
+    c_last = _plan(cfg)[-1][1]
+    total += c_last * cfg.feature_dim + cfg.feature_dim
+    total += cfg.feature_dim * cfg.n_classes + cfg.n_classes
+    return total
 
 
 def flops_per_image(cfg: CheapCNNConfig) -> int:

@@ -177,8 +177,9 @@ def test_cpu_tensors_take_the_plain_version():
     ops.pixel_match(torch.ones(4, 8), torch.zeros(3, 8), 0.1)
     ops.dequant_topk(torch.ones(4, 8, dtype=torch.uint8), torch.ones(4), 3)
     ops.topk(torch.ones(4, 8), 3)
+    ops.motion_gate(torch.ones(8, 8, 3), torch.zeros(8, 8, 3), 0.05, 0.08)
     assert ops.LAUNCHES == {"centroid_assign": 0, "pixel_match": 0,
-                            "dequant_topk": 0, "topk": 0}
+                            "dequant_topk": 0, "topk": 0, "motion_gate": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -316,3 +317,37 @@ def test_topk_empty_batch():
 def test_topk_rejects_bad_inputs(x, k):
     with pytest.raises(ValueError):
         ops.topk(x, k)
+
+
+# ---------------------------------------------------------------------------
+# motion_gate (the shape sweep against the Pallas kernel is in
+# test_torch_bgsub.py)
+# ---------------------------------------------------------------------------
+
+def test_motion_gate_plain_version_on_the_cpu_matches_jax():
+    """A CPU tensor takes the plain version, launches nothing, and gives
+    the Pallas kernel's outputs (atol 1e-6, hot masks equal)."""
+    r = np.random.default_rng(11)
+    f = r.random((40, 56, 3), dtype=np.float32)
+    bg = r.random((40, 56, 3), dtype=np.float32)
+    before = dict(ops.LAUNCHES)
+    nb, t, h = ops.motion_gate(_t(f), _t(bg), 0.1, 0.335, tile=8)
+    assert ops.LAUNCHES == before
+    assert np.abs(t.numpy() - 0.335).min() > 1e-5
+    nbr, tr, hr = (np.asarray(x) for x in jops.motion_gate(f, bg, 0.1, 0.335,
+                                                           tile=8))
+    np.testing.assert_allclose(nb.numpy(), nbr, atol=1e-6)
+    np.testing.assert_allclose(t.numpy(), tr, atol=1e-6)
+    np.testing.assert_array_equal(h.numpy(), hr)
+    assert 0 < int(h.sum()) < h.numel()
+
+
+@pytest.mark.parametrize("f,bg,tile", [
+    (torch.zeros(8, 8, 3), torch.zeros(8, 8, 3), 0),     # tile < 1
+    (torch.zeros(8, 8), torch.zeros(8, 8), 4),            # not (H, W, 3)
+    (torch.zeros(8, 8, 4), torch.zeros(8, 8, 4), 4),
+    (torch.zeros(8, 8, 3), torch.zeros(8, 9, 3), 4),      # shapes differ
+])
+def test_motion_gate_rejects_bad_inputs(f, bg, tile):
+    with pytest.raises(ValueError):
+        ops.motion_gate(f, bg, 0.05, 0.08, tile=tile)

@@ -10,7 +10,9 @@ must be exact; squared distances agree to rtol 1e-5 (fp32 dot products
 summed in another order; atol 1e-4 where a distance cancels to ~0) and
 mean pixel differences to rtol 1e-6. ``dequant_topk``'s and ``topk``'s
 values and indices must be exact, and so must the saved bytes of the
-fused pipeline against the staged path on the card.
+fused pipeline against the staged path on the card, and ``motion_gate``'s
+new background, tile means and hot mask (bitwise: the EMA is rounded
+step by step and the tile sums are exact in fp64).
 """
 import numpy as np
 import pytest
@@ -219,3 +221,78 @@ def test_pipeline_on_the_card_equals_staged(cuda):
     assert piped.save_bytes() == staged.save_bytes()
     assert p_stats.n_cnn_invocations == s_stats.n_cnn_invocations \
         == len(np.concatenate(sunk))
+
+
+def _gate_pair(f, bg, alpha, thr, tile):
+    """The kernel and its plain version on the same card-resident inputs:
+    new_bg, tiles and hot must be bitwise equal."""
+    before = ops.LAUNCHES["motion_gate"]
+    got = ops.motion_gate(f, bg, alpha, thr, tile=tile)
+    assert ops.LAUNCHES["motion_gate"] == before + 1
+    want = ref.motion_gate_ref(f, bg, alpha, thr, tile)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    return [x.cpu().numpy() for x in got]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,tile", [
+    (128, 128, 8),                       # the stream's frames
+    (720, 1280, 8),                      # a 720p camera
+    (70, 51, 8), (33, 95, 8), (16, 24, 4),
+    (4, 20, 8),                          # smaller than one tile: EMA only
+])
+def test_motion_gate_kernel_matches_plain(cuda, H, W, tile):
+    r = np.random.default_rng(H + W + tile)
+    f = r.random((H, W, 3), dtype=np.float32)
+    bg = f + r.normal(0, 0.1, (H, W, 3)).astype(np.float32)
+    nb, t, h = _gate_pair(_t(f, cuda), _t(bg, cuda), 0.05, 0.08, tile)
+    assert t.shape == h.shape == (H // tile, W // tile)
+    if t.size:
+        assert 0 < h.sum() < h.size
+
+
+@pytest.mark.cuda
+def test_motion_gate_kernel_edges(cuda):
+    r = np.random.default_rng(7)
+    f = _t(r.random((64, 64, 3), dtype=np.float32), cuda)
+    bg = _t(r.random((64, 64, 3), dtype=np.float32), cuda)
+    _, t, h = _gate_pair(f, f, 0.05, 0.0, 8)             # static: cold
+    assert (t == 0).all() and not h.any()
+    z = torch.zeros(16, 16, 3, device=cuda)
+    half = torch.full((16, 16, 3), 0.5, device=cuda)
+    _, t, h = _gate_pair(z, half, 0.05, 0.5, 8)           # strict >
+    assert (t == 0.5).all() and not h.any()
+    _, _, h = _gate_pair(z, half, 0.05, 0.4999, 8)
+    assert h.all()
+    nb, _, _ = _gate_pair(f, bg, 0.0, 0.1, 8)             # alpha = 0
+    assert (nb == bg.cpu().numpy()).all()
+    nb, _, _ = _gate_pair(f, bg, 1.0, 0.1, 8)             # alpha = 1
+    assert (nb == f.cpu().numpy()).all()
+    with pytest.raises(ValueError):
+        ops.motion_gate(f.double(), bg.double(), 0.05, 0.08)
+    with pytest.raises(ValueError):
+        ops.motion_gate(f.transpose(0, 1), bg, 0.05, 0.08)
+
+
+@pytest.mark.cuda
+def test_background_subtractor_on_the_card_equals_the_cpu(cuda):
+    """jacksonh's first 300 frames: the card (one kernel launch per frame
+    after the first) and the CPU give the same boxes on every frame and
+    the same background bit for bit."""
+    from repro_torch.data.bgsub import BackgroundSubtractor
+    from repro_torch.data.video import get_stream
+
+    card = BackgroundSubtractor(device="cuda")
+    cpu = BackgroundSubtractor(device="cpu")
+    before = ops.LAUNCHES["motion_gate"]
+    n_boxes = 0
+    for frame in get_stream("jacksonh", duration_s=10, fps=30).frames():
+        boxes = card(frame)
+        assert boxes == cpu(frame)
+        n_boxes += len(boxes)
+    assert ops.LAUNCHES["motion_gate"] - before == 299
+    assert n_boxes > 0
+    assert (card.background == cpu.background).all()
