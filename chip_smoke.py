@@ -8,14 +8,17 @@ the card.
 Phases, each fatal on failure (no phase's failure is caught):
 
 1. the card (``nvidia-smi``), torch/CUDA versions, and the build of the
-   five Hopper kernels from ``src/repro_torch/hopper/csrc``;
+   six Hopper kernels from ``src/repro_torch/hopper/csrc``;
 2. every kernel against its plain PyTorch version on the card, at the
    main path's shapes plus ragged, tie, dead-slot, threshold-edge and
    empty cases, with its time, the plain version's, one PyTorch library
    call's (a yardstick only; the port never calls it; none computes
    ``motion_gate``'s function) and its bound; ``topk`` is timed on a batch
    of the cheap CNN's own probabilities, ``motion_gate`` at the stream's
-   128 x 128 frames and at 720p;
+   128 x 128 frames and at 720p, ``flash_attention`` at the LM prefill's
+   (B=4, S=2048, H=16, dh=128) in bf16 against SDPA, after the fp32 and
+   bf16 cases, ragged S, every head width, full attention and a
+   grouped-KV layer through ``layers.multihead_attention``;
 3. the default serve path of ``repro_torch.launch.serve`` (no
    ``--model/--K/--T``) on the busiest stream (jacksonh, 120 s at 30 fps,
    4 tenants, 3 rounds): it trains spec1-spec3 (each logged loss finite,
@@ -41,7 +44,15 @@ Phases, each fatal on failure (no phase's failure is caught):
    and ``dequant_topk``, the pipeline path ``centroid_assign``,
    ``pixel_match`` and ``topk``, once per megastep, and the default path
    and the background subtraction theirs. ``dequant_topk`` is then timed
-   on the largest sealed shard's own quantized rows;
+   on the largest sealed shard's own quantized rows. Last, the LM serving
+   path (``lm_path``): olmo-1b at full width in bf16 from
+   ``transformer.init(cfg, seed=0)``, the prefill of 4 prompts of 2048
+   tokens through the flash route (16 ``flash_attention`` launches per
+   call, the only launches of the path) and the einsum route, and
+   KV-cache decode of 4 sequences (a 32-token prompt, then 32 greedy
+   tokens); then, on the same weights in fp32, the two routes' prefill
+   logits and ``decode_step`` against ``forward`` within 1e-4 of the
+   largest |logit|;
 4. card against CPU: the 120 s of frames through
    ``BackgroundSubtractor(device="cpu")`` give the card's boxes on every
    frame and its final background bit for bit; on a 60 s cut, spec1-spec3
@@ -58,7 +69,10 @@ Phases, each fatal on failure (no phase's failure is caught):
    and lazy (kernel-ranked) answers equal eagerly loaded shards' and the
    CPU's; and for the pipeline: the card's and the CPU's pipelines and
    the CPU's staged path save identical bytes, and the two sinks hold
-   identical top-K;
+   identical top-K; the LM at olmo-1b's width with 2 layers in fp32 gives
+   the CPU's prefill (flash route) and decode logits within 1e-4 of the
+   largest |logit|, and the threefry draws of the cheap CNNs and of a
+   reduced LM are bitwise equal on the card and on the CPU;
 5. where the ingest time goes: wall time per stage on a 120 s cut, for
    the override path's cheap1 (K=1000, T=0.4) and for the default path's
    chosen model at its K and T.
@@ -70,7 +84,9 @@ and match decisions exact; squared distances rtol 1e-5 (fp32 dot products
 summed in another order; atol 1e-4 where a distance cancels to ~0); mean
 pixel differences rtol 1e-6; ``dequant_topk`` and ``topk`` values and
 indices exact; ``motion_gate``'s new background, tile means and hot mask
-bitwise.
+bitwise; ``flash_attention`` fp32 atol = rtol = 2e-5 (the JAX package's
+own), bf16 one ulp: rtol 2**-7, atol 1e-4 (kernel and plain version each
+round one fp32 result to bf16 once).
 """
 from __future__ import annotations
 
@@ -87,13 +103,26 @@ LIMIT_S = 1200
 T_START = time.perf_counter()
 
 # Published peaks (NVIDIA data sheets, dense, without sparsity) by the
-# variant nvidia-smi names: fp32 and fp64 outside the tensor cores, and
-# device-memory bandwidth.
+# variant nvidia-smi names: fp32 and fp64 outside the tensor cores, bf16 on
+# the tensor cores, and device-memory bandwidth.
 PEAKS = {
-    "PCIe": {"fp32": 51.2e12, "fp64": 25.6e12, "bytes": 2.0e12},
-    "NVL": {"fp32": 60.0e12, "fp64": 30.0e12, "bytes": 3.9e12},
-    "SXM": {"fp32": 67.0e12, "fp64": 34.0e12, "bytes": 3.35e12},
+    "PCIe": {"fp32": 51.2e12, "fp64": 25.6e12, "bf16_tc": 756e12,
+             "bytes": 2.0e12},
+    "NVL": {"fp32": 60.0e12, "fp64": 30.0e12, "bf16_tc": 835e12,
+            "bytes": 3.9e12},
+    "SXM": {"fp32": 67.0e12, "fp64": 34.0e12, "bf16_tc": 989e12,
+            "bytes": 3.35e12},
 }
+
+# The LM path: olmo-1b at full width in its config's bf16, prefilling 4
+# prompts of OLMo-1B's 2048-token context, then decoding 4 sequences into
+# a 2048-slot cache (a 32-token prompt one token at a time, then 32
+# greedy tokens).
+LM_ARCH = "olmo-1b"
+LM_BATCH, LM_SEQ = 4, 2048
+DECODE_PROMPT, DECODE_NEW, DECODE_SLOTS = 32, 32, 2048
+# phase 4's card-against-CPU LM: olmo-1b's width with 2 layers
+LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_SEQ = 2, 2, 256
 
 
 def emit(obj):
@@ -468,6 +497,7 @@ def gate_entry(ops, ref, f, bg, peaks, tile=8):
 
 def kernel_phase(ops, ref, dev, crops, probs, peaks):
     import torch
+    fa_checks, fa_path = check_flash_attention(ops, ref, dev, lm_config())
     ca_err, (f, c, T) = check_centroid_assign(ops, ref, dev)
     pm_err, tracker, gate = check_pixel_match(ops, ref, dev, crops)
     dq_err = check_dequant_topk(ops, ref, dev)
@@ -531,7 +561,120 @@ def kernel_phase(ops, ref, dev, crops, probs, peaks):
           "max_abs_err": 0.0, **gate_entry(ops, ref, *gate_path, peaks)}
     mg_720p = {"name": "motion_gate", "cases": gate_cases,
                **gate_entry(ops, ref, *gate_big, peaks)}
-    return ca, pm, pm_gate, dq, tk, mg, mg_720p
+    fa = {"name": "flash_attention", "route": "cuda",
+          "source": "src/repro_torch/hopper/csrc/flash_attention.cu",
+          "replaces": "src/repro/kernels/flash_attention.py:78",
+          **fa_checks, **flash_entry(ops, ref, *fa_path, peaks)}
+    return ca, pm, pm_gate, dq, tk, mg, mg_720p, fa
+
+
+def lm_config(**overrides):
+    """The LM of the path (``LM_ARCH``'s config), with ``overrides``."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(LM_ARCH), **overrides)
+
+
+def _flash_pair(ops, ref, q, k, v, causal, atol, rtol=0.0):
+    """The kernel against its plain version on one input; every element
+    within ``atol + rtol * |plain|`` (numpy's allclose)."""
+    import torch
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          f"flash_attention output {got.dtype} {tuple(got.shape)}")
+    diff = (got.float() - want.float()).abs()
+    bad = diff > atol + rtol * want.float().abs()
+    check(not bool(bad.any()), f"flash_attention {tuple(q.shape)} "
+          f"{q.dtype} causal={causal}: {int(bad.sum())} elements off, "
+          f"max |diff| {float(diff.max())}")
+    return float(diff.max())
+
+
+def check_flash_attention(ops, ref, dev, cfg):
+    """``flash_attention`` against its plain version at the JAX package's
+    fp32 tolerance (``tests/test_kernels.py``), atol = rtol = 2e-5, and in
+    bf16 to one ulp, rtol 2**-7 with atol 1e-4 (both round one fp32 result
+    to bf16 once, and those differ only in summation order); at the LM
+    path's shape in both types, ragged S, every built
+    head width, causal and full; and one grouped-KV layer through
+    ``layers.multihead_attention``'s flash route against its einsum route
+    (atol 1e-4, the JAX package's tolerance for that comparison)."""
+    import numpy as np
+    import torch
+    from repro_torch.common import prng
+    from repro_torch.models import layers
+    r = np.random.default_rng(5)
+
+    def t(shape, dtype=torch.float32):
+        return torch.from_numpy(r.normal(size=shape).astype(
+            np.float32)).to(dev, dtype)
+
+    B, S, H, dh = LM_BATCH, LM_SEQ, cfg.n_heads, cfg.head_dim
+    path = [t((B, S, H, dh), torch.bfloat16) for _ in range(3)]
+    bf16 = [_flash_pair(ops, ref, *path, True, 1e-4, 2 ** -7)]
+    bf16.append(_flash_pair(ops, ref, *(t((2, 77, H, dh), torch.bfloat16)
+                                        for _ in range(3)), False, 1e-4,
+                            2 ** -7))
+    fp32 = [_flash_pair(ops, ref, *(x.float() for x in path), True, 2e-5,
+                        2e-5)]
+    shapes = [(2, s, 3, 64, True) for s in (1, 50, 1000)]
+    shapes += [(2, 130, 3, d, c) for d in (16, 32, 64)
+               for c in (True, False)]
+    shapes += [(2, 96, 3, 128, False)]
+    for b_, s_, h_, d_, causal in shapes:
+        fp32.append(_flash_pair(ops, ref, *(t((b_, s_, h_, d_))
+                                            for _ in range(3)),
+                                causal, 2e-5, 2e-5))
+    # grouped KV: 4 query heads per KV head at the LM's width
+    D, n_heads = cfg.d_model, cfg.n_heads
+    p = layers.attn_init(prng.key(9, dev), D, n_heads, n_heads // 4,
+                         torch.float32)
+    x = t((2, 300, D))
+    kw = dict(n_heads=n_heads, n_kv_heads=n_heads // 4, causal=True)
+    got = layers.multihead_attention(p, x, attn_impl="flash", **kw)
+    want = layers.multihead_attention(p, x, attn_impl="einsum", **kw)
+    gqa = float((got - want).abs().max())
+    check(gqa <= 1e-4, f"grouped-KV flash route vs einsum route: {gqa}")
+    return {"max_abs_err": max(fp32), "bf16_max_abs_err": max(bf16),
+            "gqa_max_abs_err": gqa, "cases": len(fp32) + len(bf16) + 1}, \
+        path
+
+
+def flash_entry(ops, ref, q, k, v, peaks):
+    """``flash_attention`` timed at the LM path's shape (causal bf16).
+    Bound by operations: the causal half of the two products, S(S+1)/2
+    score pairs per head at 2*dh operations each per product; q.k^T has
+    bf16 operands, so it goes at the bf16 tensor-core peak, and p.v at
+    fp32's (p stays fp32, as the JAX kernel keeps it), the two times added.
+    Bytes: q, k, v read once, the output written once. Beside it, the same
+    operations all at fp32's peak and all at bf16's tensor-core peak. SDPA
+    on the (B, H, S, dh) view is the library yardstick, never called by
+    the port."""
+    import torch
+    import torch.nn.functional as F
+    B, S, H, dh = q.shape
+    n_ops = 2 * B * H * dh * S * (S + 1)
+    n_bytes = 4 * q.numel() * q.element_size()
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    qk_peak = peaks["bf16_tc"] if q.dtype == torch.bfloat16 else peaks["fp32"]
+    op_s = n_ops / 2 / qk_peak + n_ops / 2 / peaks["fp32"]
+    by_s = n_bytes / peaks["bytes"]
+    return {
+        "shape": [B, S, H, dh], "dtype": str(q.dtype), "causal": True,
+        "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6,
+        "ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+        "plain_ms": time_ms(
+            lambda: ref.flash_attention_ref(q, k, v, causal=True)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        "bound_ms": 1e3 * max(op_s, by_s),
+        "bound_by": "operations" if op_s > by_s else "bytes",
+        "bound_fp32_ms": 1e3 * n_ops / peaks["fp32"],
+        "bound_bf16_tensor_core_ms": 1e3 * n_ops / peaks["bf16_tc"],
+    }
+
 
 
 def get_frames(stream, n=None, duration=120):
@@ -762,8 +905,229 @@ def pipeline_rollover(forward, cfg, flops, duration, shard_objects=2048,
 
 
 # ---------------------------------------------------------------------------
+# phase 3: the LM serving path (prefill and KV-cache decode)
+# ---------------------------------------------------------------------------
+
+def _rel_err(a, b):
+    """max |a - b| over the largest |b|: the logits' agreement."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max())
+
+
+def lm_path(ops, peaks):
+    """The decoder LM served on the card: ``transformer.init`` of the path's
+    config from seed 0, the prefill of ``LM_BATCH`` prompts of ``LM_SEQ``
+    tokens through the flash route (one ``flash_attention`` launch per
+    layer per call) and the einsum route (a warm-up, then the median wall
+    of 3 calls each), and decode: a ``DECODE_PROMPT``-token prompt through
+    ``decode_step`` one token at a time, then ``DECODE_NEW`` greedy
+    tokens, into a ``DECODE_SLOTS``-slot cache. The launch counters are
+    zeroed just before and read just after. Then the fp32 checks on the
+    same weights widened to fp32: the two prefill routes' last-position
+    logits, and ``decode_step`` fed the prompt against ``forward`` of the
+    prompt at every position, each within 1e-4 of the largest |logit|."""
+    import dataclasses
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.common.device import resolve_device
+    from repro_torch.models import transformer as T
+
+    dev = resolve_device("cuda")
+    cfg = lm_config()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = T.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in _flat_tree(params))
+    weight_bytes = sum(x.numel() * x.element_size()
+                       for x in _flat_tree(params))
+    r = np.random.default_rng(0)
+    tokens = torch.from_numpy(r.integers(0, cfg.vocab_size,
+                                         (LM_BATCH, LM_SEQ))).to(dev)
+
+    PREFILL_CALLS = 4
+
+    def run_prefill(impl, p, c):
+        walls, out = [], None
+        for i in range(PREFILL_CALLS):      # a warm-up, then 3 timed calls
+            before = ops.LAUNCHES["flash_attention"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = T.prefill(p, tokens, c, attn_impl=impl)
+            torch.cuda.synchronize()
+            if i:
+                walls.append(time.perf_counter() - t0)
+            n = ops.LAUNCHES["flash_attention"] - before
+            want = c.n_layers if impl == "flash" else 0
+            check(n == want, f"{impl} prefill launched flash_attention "
+                  f"{n} times, expected {want}")
+        check(out.shape == (LM_BATCH, 1, c.vocab_size)
+              and bool(torch.isfinite(out).all()),
+              f"{impl} prefill logits {tuple(out.shape)} not finite")
+        med = statistics.median(walls)
+        return out, {"walls_s": walls, "median_s": med,
+                     "tokens_per_s": LM_BATCH * LM_SEQ / med}
+
+    ops.reset_launches()
+    flash_logits, flash = run_prefill("flash", params, cfg)
+    einsum_logits, einsum = run_prefill("einsum", params, cfg)
+    cache = T.init_cache(cfg, LM_BATCH, DECODE_SLOTS, device="cuda")
+    cache_bytes = sum(x.numel() * x.element_size() for x in cache.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(DECODE_PROMPT):
+        logits, cache = T.decode_step(params, cache, tokens[:, t:t + 1], t,
+                                      cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tok, generated = logits.argmax(-1), []
+    for t in range(DECODE_PROMPT, DECODE_PROMPT + DECODE_NEW):
+        logits, cache = T.decode_step(params, cache, tok, t, cfg)
+        tok = logits.argmax(-1)
+        generated.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+    check(launches["flash_attention"] == PREFILL_CALLS * cfg.n_layers
+          and sum(launches.values()) == launches["flash_attention"],
+          f"the LM path's launches: {launches}")
+    check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+    generated = torch.cat(generated, dim=1)
+    check(generated.shape == (LM_BATCH, DECODE_NEW)
+          and bool(((generated >= 0) & (generated < cfg.vocab_size)).all()),
+          "greedy tokens out of the vocabulary")
+    steps = DECODE_PROMPT + DECODE_NEW
+    decode = {
+        "batch": LM_BATCH, "cache_slots": DECODE_SLOTS,
+        "prompt_tokens": DECODE_PROMPT, "new_tokens": DECODE_NEW,
+        "prompt_ms_per_token": 1e3 * (t1 - t0) / DECODE_PROMPT,
+        "new_ms_per_token": 1e3 * (t2 - t1) / DECODE_NEW,
+        "ms_per_token": 1e3 * (t2 - t0) / steps,
+        "weights_gb": weight_bytes / 1e9, "cache_gb": cache_bytes / 1e9,
+        # every step reads every weight once; the einsum over the cache
+        # also reads all its slots (masked past the filled ones)
+        "bound_ms_weights": 1e3 * weight_bytes / peaks["bytes"],
+        "bound_ms_weights_and_cache":
+            1e3 * (weight_bytes + cache_bytes) / peaks["bytes"],
+        "first_generated": generated[0, :8].tolist(),
+    }
+    bf16_routes = _rel_err(flash_logits, einsum_logits)
+    del cache, logits
+
+    # fp32 checks on the same weights (bf16 values are exact in fp32)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = T.tree_map(lambda x: x.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    fl32 = T.prefill(p32, tokens, cfg32, attn_impl="flash")
+    ei32 = T.prefill(p32, tokens, cfg32, attn_impl="einsum")
+    prefill_rel = _rel_err(fl32, ei32)
+    check(prefill_rel <= 1e-4, f"fp32 prefill, flash vs einsum route: "
+          f"{prefill_rel} of the largest |logit|")
+    prompt = tokens[:, :DECODE_PROMPT]
+    full, _ = T.forward(p32, prompt, cfg32)
+    cache32 = T.init_cache(cfg32, LM_BATCH, DECODE_SLOTS, device="cuda")
+    per_step = []
+    for t in range(DECODE_PROMPT):
+        out, cache32 = T.decode_step(p32, cache32, prompt[:, t:t + 1], t,
+                                     cfg32)
+        per_step.append(out[:, 0])
+    decode_rel = _rel_err(torch.stack(per_step, dim=1), full)
+    check(decode_rel <= 1e-4, f"fp32 decode vs forward: {decode_rel} of "
+          f"the largest |logit|")
+    del p32, cache32
+    torch.cuda.empty_cache()
+    return {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim, "dtype": cfg.dtype, "params": n_params,
+        # the config's count also holds d for the final norm, which
+        # OLMo's non-parametric LN does not have
+        "config_n_params": cfg.n_params(),
+        "init_s": init_s, "batch": LM_BATCH, "seq": LM_SEQ,
+        "prefill_flash": flash, "prefill_einsum": einsum,
+        "prefill_bf16_flash_vs_einsum_rel": bf16_routes,
+        "decode": decode, "launches": launches,
+        "fp32_prefill_flash_vs_einsum_rel": prefill_rel,
+        "fp32_decode_vs_forward_rel": decode_rel,
+    }
+
+
+# ---------------------------------------------------------------------------
 # phase 4: card against CPU
 # ---------------------------------------------------------------------------
+
+def lm_card_vs_cpu():
+    """The LM at the path's width with ``LM_CPU_LAYERS`` layers, fp32, the
+    same weights on both: the card's flash prefill and decode logits
+    against the CPU's (plain versions), within 1e-4 of the largest
+    |logit|; and the threefry draws on the card against the CPU's: the
+    cheap CNNs' ``init_params`` and a reduced LM's ``init``, bit for
+    bit."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.common.config import reduced
+    from repro_torch.common.device import resolve_device
+    from repro_torch.launch import zoo
+    from repro_torch.models import cnn
+    from repro_torch.models import transformer as T
+
+    cfg = lm_config(n_layers=LM_CPU_LAYERS, dtype="float32")
+    card = T.init(cfg, seed=1, device="cuda")
+    cpu = T.tree_map(lambda x: x.cpu(), card)
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (LM_CPU_BATCH, LM_CPU_SEQ))
+    tp = torch.from_numpy(toks)
+    tc = tp.to(resolve_device("cuda"))
+    prefill_rel = _rel_err(T.prefill(card, tc, cfg, attn_impl="flash").cpu(),
+                           T.prefill(cpu, tp, cfg, attn_impl="flash"))
+    check(prefill_rel <= 1e-4, f"LM prefill card vs CPU: {prefill_rel}")
+    n = 16
+    caches = [T.init_cache(cfg, LM_CPU_BATCH, n, device=d)
+              for d in ("cuda", "cpu")]
+    decode_rel = 0.0
+    for t in range(n):
+        a, caches[0] = T.decode_step(card, caches[0], tc[:, t:t + 1], t, cfg)
+        b, caches[1] = T.decode_step(cpu, caches[1], tp[:, t:t + 1], t, cfg)
+        decode_rel = max(decode_rel, _rel_err(a.cpu(), b))
+    check(decode_rel <= 1e-4, f"LM decode card vs CPU: {decode_rel}")
+    del card, cpu, caches
+    torch.cuda.empty_cache()
+
+    cnn_cfgs = [zoo.GENERIC_FAMILY["cheap1"][0]] + [
+        dataclasses.replace(c, n_classes=7)
+        for c, _ in zoo.SPECIALIZED_FAMILY.values()]
+    for c in cnn_cfgs:
+        a, b = (cnn.init_params(c, 0, device=d) for d in ("cuda", "cpu"))
+        same = all(np.array_equal(x, y) for x, y in zip(_flat_tree(a),
+                                                        _flat_tree(b)))
+        check(same, f"{c.name}: the card's threefry draw differs from the "
+              f"CPU's")
+    small = reduced(lm_config())
+    a, b = (T.params_to_jax(T.init(small, 0, device=d))
+            for d in ("cuda", "cpu"))
+    check(all(np.array_equal(x, y) for x, y in zip(_flat_tree(a),
+                                                   _flat_tree(b))),
+          "the reduced LM's draw differs between the card and the CPU")
+    return {"layers": cfg.n_layers, "d_model": cfg.d_model,
+            "batch": LM_CPU_BATCH, "seq": LM_CPU_SEQ, "decode_steps": n,
+            "prefill_rel": prefill_rel, "decode_rel": decode_rel,
+            "init_draws_bitwise": [c.name for c in cnn_cfgs] + [small.name]}
+
+
+def _flat_tree(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat_tree(tree[k])
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _flat_tree(v)
+    else:
+        yield tree
+
 
 def card_vs_cpu(serve_args):
     import numpy as np
@@ -1201,7 +1565,7 @@ def main():
     forward = cnn.make_forward(cnn.build(mcfg, cnn.init_params(mcfg, seed=0),
                                          dev))
     probs = forward(torch.from_numpy(crops[:512]).to(dev))[0].contiguous()
-    ca, pm, pm_gate, dq, tk, mg, mg_720p = kernel_phase(
+    ca, pm, pm_gate, dq, tk, mg, mg_720p, fa = kernel_phase(
         ops, ref, dev, (crops, frames), probs, peaks)
     emit({"phase": "kernels", "gpu": smi, "pixel_match_gate_shape": pm_gate,
           "motion_gate_720p": mg_720p, "elapsed_s": elapsed()})
@@ -1299,12 +1663,16 @@ def main():
         entry["launches_pipeline"] = pipe["launches"][entry["name"]]
     dq["launches"] = archive["dequant_topk"]
     tk["launches"] = pipe["launches"]["topk"]
+    lm = lm_path(ops, peaks)
+    emit({"phase": "lm_path", "gpu": smi, **lm, "elapsed_s": elapsed()})
+    fa["launches"] = lm["launches"]["flash_attention"]
 
     # -- phase 4: card against CPU --------------------------------------------
     emit({"phase": "card_vs_cpu", **card_vs_cpu(serve_args),
           "bgsub": bgsub_card_vs_cpu(gate_boxes, gate_bg),
           "selection": selection_card_vs_cpu(),
-          "training": train_card_vs_cpu(), "elapsed_s": elapsed()})
+          "training": train_card_vs_cpu(), "lm": lm_card_vs_cpu(),
+          "elapsed_s": elapsed()})
     override = cnn.make_apply(cnn.build(mcfg, cnn.init_params(mcfg, 0), dev))
     override_cfg = IngestConfig(K=serve_args["K"], threshold=serve_args["T"])
     emit({"phase": "breakdown", "gpu": smi,
@@ -1314,7 +1682,7 @@ def main():
           "elapsed_s": elapsed()})
     check(elapsed() < LIMIT_S, f"over the {LIMIT_S} s limit")
 
-    emit({"kernels": [ca, pm, dq, tk, mg]})
+    emit({"kernels": [ca, pm, dq, tk, mg, fa]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

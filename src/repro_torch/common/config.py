@@ -1,8 +1,114 @@
-"""Configuration of the cheap ingest CNN (the only model family this port
-runs so far)."""
+"""Configuration of the model families the port runs: the cheap ingest CNN
+and the decoder-only LM (``LMConfig``, with its shape cells). The vision
+and diffusion families of the JAX package come with their slice.
+"""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    """One (input-shape) cell of the dry-run grid.
+
+    kind:
+      train    -> lowers train_step            (LM)
+      prefill  -> lowers prefill serve_step    (LM)
+      decode   -> lowers 1-token decode serve_step with seq_len KV cache (LM)
+      long     -> decode with a very long cache (sub-quadratic attn required)
+      dit_train/dit_gen -> diffusion train / sampler loop
+      cls      -> vision train step
+      serve    -> vision inference forward
+    """
+
+    name: str
+    kind: str
+    seq_len: int = 0
+    global_batch: int = 0
+    img_res: int = 0
+    steps: int = 0
+
+
+@dataclass(frozen=True)
+class LMConfig:
+    """A decoder-only LM, field for field the JAX package's ``LMConfig``.
+
+    The fields that only lay the model out over a TPU mesh or schedule its
+    training (``act_sharding``, ``parallelism``, ``grad_reduce_dtype``,
+    ``remat``, ``remat_policy``, ``scan_layers``, ``train_microbatches``,
+    ``prefill_batch_chunks``) are kept so configs copy verbatim; one card
+    ignores them. The MoE fields describe models whose slice is still to
+    come: ``models.transformer`` raises on ``moe=True``.
+    """
+
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int                      # per-expert width when moe=True
+    vocab_size: int
+    moe: bool = False
+    n_experts: int = 0
+    moe_top_k: int = 0
+    moe_group_size: int = 1024     # GShard dispatch group size (tokens)
+    moe_capacity_factor: float = 1.25
+    moe_dispatch: str = "einsum"   # "einsum" (GShard baseline) | "scatter"
+    norm: str = "rmsnorm"          # "rmsnorm" | "layernorm" | "nonparametric_ln"
+    mlp_act: str = "swiglu"        # "swiglu" | "gelu"
+    rope_theta: float = 10000.0
+    attention: str = "full"        # "full" | "window"
+    window: int = 0                # sliding-window size when attention=="window"
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "nothing"
+    scan_layers: bool = True
+    act_sharding: str = "auto"
+    train_microbatches: int = 1
+    parallelism: str = "fsdp_tp"
+    grad_reduce_dtype: str = "f32"
+    attn_scores_dtype: str = "f32"  # "f32" | "bf16": score matrix precision
+    attn_q_chunk: int = 4096        # query-block size: live scores shrink to
+                                    # (B, H, q_chunk, S) per block
+    prefill_batch_chunks: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    def _per_layer_attn(self) -> int:
+        d, hd = self.d_model, self.head_dim
+        return (d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+                + self.n_heads * hd * d)
+
+    def _rest(self) -> int:
+        emb = self.vocab_size * self.d_model
+        head = 0 if self.tie_embeddings else self.vocab_size * self.d_model
+        return emb + head + self.d_model
+
+    def n_params(self) -> int:
+        """Total parameter count (embedding included)."""
+        d, f = self.d_model, self.d_ff
+        if self.moe:
+            mlp = self.n_experts * (3 * d * f) + d * self.n_experts
+        else:
+            n_mat = 3 if self.mlp_act == "swiglu" else 2
+            mlp = n_mat * d * f
+        norms = 2 * d if self.norm != "nonparametric_ln" else 0
+        return (self.n_layers * (self._per_layer_attn() + mlp + norms)
+                + self._rest())
+
+    def n_active_params(self) -> int:
+        """Parameters active per token (MoE top-k)."""
+        if not self.moe:
+            return self.n_params()
+        d, f = self.d_model, self.d_ff
+        mlp = self.moe_top_k * (3 * d * f) + d * self.n_experts
+        norms = 2 * d if self.norm != "nonparametric_ln" else 0
+        return (self.n_layers * (self._per_layer_attn() + mlp + norms)
+                + self._rest())
 
 
 @dataclass(frozen=True)
@@ -35,3 +141,28 @@ CHEAP_CNNS = {
     "cheap1": CheapCNNConfig("cheap1", input_res=32, n_blocks=6, width=48,
                              n_classes=1000, feature_dim=128),
 }
+
+
+LM_SHAPES = {
+    "train_4k": ShapeCell("train_4k", "train", seq_len=4096, global_batch=256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", seq_len=32768,
+                             global_batch=32),
+    "decode_32k": ShapeCell("decode_32k", "decode", seq_len=32768,
+                            global_batch=128),
+    "long_500k": ShapeCell("long_500k", "long", seq_len=524288,
+                           global_batch=1),
+}
+
+
+def reduced(cfg, **overrides):
+    """A tiny same-family config for CPU smoke tests (the JAX package's
+    ``reduced``). Only the LM family is ported so far; the others raise."""
+    if not isinstance(cfg, LMConfig):
+        raise TypeError(f"reduced() of {type(cfg).__name__} comes with its "
+                        f"family's slice of the port")
+    base = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                vocab_size=256, moe_group_size=32, remat=False)
+    if cfg.moe:
+        base.update(n_experts=4, moe_top_k=2)
+    base.update(overrides)
+    return dataclasses.replace(cfg, name=cfg.name + "-smoke", **base)

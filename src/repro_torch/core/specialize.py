@@ -6,12 +6,11 @@ cheap CNN on (Ls + OTHER) with the training data re-weighted so OTHER does
 not dominate (paper footnote 2). Specialized models are smaller and more
 accurate on their stream, which lets Focus use a much smaller K.
 
-A port of ``repro.core.specialize``: the class map, the equal-class weights
-and the batch indices (``numpy.random.default_rng(seed)``) are the
-reference's. The initial weights are not: the reference draws them with
-``jax.random`` (threefry), the port with ``cnn.init_params(cfg, seed)``
-(numpy), so the two packages train different models from one seed unless
-``init=`` hands both the same JAX-layout tree.
+A port of ``repro.core.specialize``: the class map, the equal-class weights,
+the batch indices (``numpy.random.default_rng(seed)``) and the initial
+weights (``cnn.init_params(cfg, seed)``, JAX's threefry draw through
+``common.prng``) are the reference's, so both packages train the same
+model from one seed; ``init=`` still hands in any JAX-layout tree.
 """
 from __future__ import annotations
 

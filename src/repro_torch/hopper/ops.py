@@ -17,7 +17,10 @@ import torch
 from repro_torch.hopper import build, ref
 
 LAUNCHES = {"centroid_assign": 0, "pixel_match": 0, "dequant_topk": 0,
-            "topk": 0, "motion_gate": 0}
+            "topk": 0, "motion_gate": 0, "flash_attention": 0}
+
+# head widths the flash_attention kernel is built for (the JAX tests' set)
+FLASH_HEAD_DIMS = (16, 32, 64, 128)
 
 # widest row the dequant_topk and topk kernels rank: their fp32 copy of one
 # row lives in 48 KB of shared memory (kRankMaxC in csrc/rank_topk.cuh)
@@ -273,3 +276,54 @@ def motion_gate(frame: torch.Tensor, bg: torch.Tensor, alpha, threshold, *,
     _raise_on(err, "motion_gate")
     LAUNCHES["motion_gate"] += 1
     return new_bg, tiles, hot
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q, k, v (B, S, H, dh) -> (B, S, H, dh): softmax attention with an
+    online softmax over KV tiles, fp32 inside, q's dtype out; ``causal``
+    masks the columns past each row. Any S >= 1; grouped KV heads are
+    repeated to H by the caller, as the JAX package's attention does.
+
+    The kernel reads the (B, S, H, dh) layout through its row stride
+    ``H * dh`` instead of transposing to (B*H, S, dh) as the JAX package's
+    wrapper does; the plain version keeps JAX's layout. The kernel takes
+    contiguous float32 or bfloat16 tensors of one dtype with dh in
+    ``FLASH_HEAD_DIMS``."""
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must all be (B, S, H, dh), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not q.device == k.device == v.device:
+        raise ValueError(f"q, k, v lie on {q.device}, {k.device}, "
+                         f"{v.device}")
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or not \
+            q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"flash_attention: the kernel takes float32 or "
+                         f"bfloat16 of one dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    B, S, H, dh = q.shape
+    if dh not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {dh} not in "
+                         f"{FLASH_HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: the kernel takes contiguous "
+                         "(B, S, H, dh) tensors")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if B * H > 65535:
+        raise ValueError(f"flash_attention: B*H = {B * H} exceeds the "
+                         f"kernel's 65535 blocks in y")
+    scale = float(np.float32(1.0 / dh ** 0.5))
+    err = build.load().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+        dh, int(q.dtype == torch.bfloat16), int(causal), scale,
+        _stream(q.device))
+    _raise_on(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

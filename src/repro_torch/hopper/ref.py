@@ -21,9 +21,14 @@ alike:
 * ``motion_gate_ref`` rounds each product and the sum of the EMA
   separately, as the CUDA kernel does, and sums each tile's ``|f - bg|``
   in fp64 before rounding its mean to fp32 once (see
-  ``csrc/motion_gate.cu``).
+  ``csrc/motion_gate.cu``);
+* ``flash_attention_ref`` is dense softmax attention in fp32 (the JAX
+  package's ``flash_attention_ref``); the kernel's online softmax sums in
+  another order, so the two agree to a tolerance, not bitwise.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -125,3 +130,18 @@ def motion_gate_ref(frame: torch.Tensor, bg: torch.Tensor, alpha, threshold,
     tiles = (s / (3 * tile * tile)).float()
     thr = torch.as_tensor(threshold, dtype=torch.float32, device=f.device)
     return new_bg, tiles, tiles > thr
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """q, k, v (B, S, H, dh) -> (B, S, H, dh): plain softmax attention,
+    computed in fp32 and cast back to q's dtype; ``causal`` masks the
+    columns past each row."""
+    S, dh = q.shape[1], q.shape[-1]
+    scale = 1.0 / math.sqrt(dh)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, -math.inf)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v.float()).to(q.dtype)

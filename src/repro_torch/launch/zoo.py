@@ -17,8 +17,8 @@ Cost model:
 its cache: ``experiments/torch_cache/`` at the root of the checkout, one
 ``.npz`` of JAX-layout parameters (``cnn.save_npz_params``) and one
 ``.json`` with the config and the class map per (stream, model, duration,
-Ls, steps, objects). The JAX package's pickled cache is never read: its
-pickles name classes of the JAX package.
+Ls, steps, objects, ``INIT_VERSION``). The JAX package's pickled cache is
+never read: its pickles name classes of the JAX package.
 """
 from __future__ import annotations
 
@@ -40,6 +40,10 @@ from repro_torch.core.specialize import (SpecializedModel, specialize,
 from repro_torch.models import cnn
 
 CACHE_DIR = Path(__file__).resolve().parents[3] / "experiments" / "torch_cache"
+# How the initial weights were drawn, part of every cache key: 2 is JAX's
+# threefry draw (``common.prng``); 1, numpy's ``default_rng``, trained other
+# models from the same seed, and its entries are never served again.
+INIT_VERSION = 2
 
 # GT-CNN: vit-l16 @ 224, 2 * n_params * n_tokens forward FLOPs per object
 # crop (the JAX package derives it from its vit-l16 config; the tests hold
@@ -83,7 +87,7 @@ def cache_prefix(stream: str, model_id: str, duration_s: int, steps: int,
     """Where ``get_model`` keeps one trained model (without suffix)."""
     root = Path(cache_dir if cache_dir is not None else CACHE_DIR)
     return root / (f"{stream}_{model_id}_{duration_s}s_ls{Ls}_"
-                   f"steps{steps}_n{n_objects}")
+                   f"steps{steps}_n{n_objects}_init{INIT_VERSION}")
 
 
 def save_model(sm: SpecializedModel, prefix: Path):

@@ -1,1 +1,2 @@
-"""Models: the cheap ingest CNN."""
+"""Models: the cheap ingest CNN and the dense decoder LM (layers,
+transformer)."""

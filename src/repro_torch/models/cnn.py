@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.common import prng
 from repro_torch.common.config import CheapCNNConfig
 from repro_torch.common.device import DeviceLike, resolve_device
 
@@ -89,26 +90,38 @@ class CheapCNN(nn.Module):
         return logits, feats
 
 
-def init_params(cfg: CheapCNNConfig, seed: int = 0) -> dict:
-    """Random parameters as a JAX-layout tree of numpy arrays, drawn from
-    ``numpy.random.default_rng(seed)`` with the JAX package's scales
-    (conv: normal / sqrt(fan_in); dense: normal / sqrt(d_in))."""
-    rng = np.random.default_rng(seed)
+def init_params(cfg: CheapCNNConfig, seed: int = 0,
+                device: DeviceLike = "cpu") -> dict:
+    """Random parameters as a JAX-layout tree of numpy arrays: the JAX
+    package's ``cnn.init(jax.random.PRNGKey(seed), cfg)``, drawn through
+    ``common.prng`` on ``device`` with its key splits, leaves and op order
+    (conv: ``normal / sqrt(fan_in)``; dense: ``normal * (1 / sqrt(d_in))``;
+    both in fp32). The card and the CPU draw the same bits."""
+    dev = resolve_device(device)
+    plan = _plan(cfg)
+    ks = prng.split(prng.key(seed, dev), len(plan) + 2)
+
+    def dense(k, d_in, d_out):
+        return prng.normal(k, (d_in, d_out)) * (1.0 / math.sqrt(d_in))
+
+    def host(t):
+        return t.cpu().numpy()
+
     blocks = []
-    for ci, co, _ in _plan(cfg):
-        w = rng.standard_normal((3, 3, ci, co)) / math.sqrt(9 * ci)
-        blocks.append({"conv": {"w": w.astype(np.float32)},
+    for k, (ci, co, _) in zip(ks[:len(plan)], plan):
+        fan_in = torch.tensor(math.sqrt(9 * ci), dtype=torch.float32,
+                              device=dev)
+        blocks.append({"conv": {"w": host(prng.normal(k, (3, 3, ci, co))
+                                          / fan_in)},
                        "scale": np.ones((co,), np.float32),
                        "bias": np.zeros((co,), np.float32)})
-    c_last = _plan(cfg)[-1][1]
+    c_last = plan[-1][1]
     d = cfg.feature_dim
     return {
         "blocks": blocks,
-        "feat": {"w": (rng.standard_normal((c_last, d)) / math.sqrt(c_last)
-                       ).astype(np.float32),
+        "feat": {"w": host(dense(ks[-2], c_last, d)),
                  "b": np.zeros((d,), np.float32)},
-        "head": {"w": (rng.standard_normal((d, cfg.n_classes)) / math.sqrt(d)
-                       ).astype(np.float32),
+        "head": {"w": host(dense(ks[-1], d, cfg.n_classes)),
                  "b": np.zeros((cfg.n_classes,), np.float32)},
     }
 

@@ -1,0 +1,206 @@
+"""Decoder-only LM (dense, GQA, rotary) with a prefill path and a KV-cache
+decode path: a port of ``repro.models.transformer`` for one card.
+
+Params layout, the JAX package's (leaves under "layers" are stacked on a
+leading L axis), as a dictionary of tensors:
+  tok_embed (V, D)
+  layers/ln1/..., layers/attn/{wq,wk,wv,wo}, layers/ln2/...,
+  layers/mlp/{wi,wg,wo}
+  final_ln/..., head/w (D, V) unless the embeddings are tied
+
+``init(cfg, seed)`` draws JAX's ``init(PRNGKey(seed), cfg)`` through
+``common.prng``; ``params_from_jax``/``params_to_jax`` convert trees of
+numpy arrays. The layers run one after another (the JAX package's
+``scan`` over the stacked axis, or its unrolled loop, compute the same);
+there is no mesh, remat or micro-batching on one card. MoE configs raise:
+their slice is still to come.
+
+``attn_impl`` picks the attention of ``forward``/``prefill``: ``"einsum"``
+(the default, what the JAX package's LM computes) or ``"flash"``, the
+``flash_attention`` kernel that the JAX package's attention layer offers
+as ``attn_impl="flash"``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.common import prng
+from repro_torch.common.config import LMConfig
+from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+
+
+def _check(cfg: LMConfig):
+    if cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP)")
+
+
+def init(cfg: LMConfig, seed: int = 0, device: DeviceLike = "cuda") -> dict:
+    """Random parameters on ``device``: the JAX package's
+    ``init(jax.random.PRNGKey(seed), cfg)``, key for key and leaf for leaf
+    (its ``vmap`` over the layer keys is one draw per layer key)."""
+    _check(cfg)
+    dev = resolve_device(device)
+    dt = L.compute_dtype(cfg.dtype)
+    ks = prng.split(prng.key(seed, dev), 4)
+    emb = (prng.normal(ks[0], (cfg.vocab_size, cfg.d_model)) * 0.02).to(dt)
+
+    def layer_init(k):
+        k1, k2 = prng.split(k)
+        return {
+            "ln1": L.norm_init(cfg.norm, cfg.d_model, dev),
+            "attn": L.attn_init(k1, cfg.d_model, cfg.n_heads,
+                                cfg.n_kv_heads, dt),
+            "ln2": L.norm_init(cfg.norm, cfg.d_model, dev),
+            "mlp": L.mlp_init(k2, cfg.d_model, cfg.d_ff, cfg.mlp_act, dt),
+        }
+
+    per_layer = [layer_init(k) for k in prng.split(ks[1], cfg.n_layers)]
+    params = {
+        "tok_embed": emb,
+        "layers": _stack(per_layer),
+        "final_ln": L.norm_init(cfg.norm, cfg.d_model, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = {"w": L.dense_init(ks[2], cfg.d_model,
+                                            cfg.vocab_size, dtype=dt)}
+    return params
+
+
+def _stack(trees: list) -> dict:
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def tree_map(fn, tree: dict) -> dict:
+    """``fn`` applied to every tensor of a parameter (or cache) tree, as
+    ``jax.tree.map`` does: e.g. ``tree_map(lambda t: t.float(), params)``
+    or ``tree_map(lambda t: t.cpu(), params)``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_jax(tree: dict, cfg: LMConfig,
+                    device: DeviceLike = "cuda") -> dict:
+    """A JAX-layout parameter tree (numpy or JAX arrays, bf16 included) as
+    the port's dictionary on ``device``: norm parameters fp32, every matrix
+    in the config's dtype, as the JAX package's ``init`` lays them out."""
+    dev = resolve_device(device)
+    dt = L.compute_dtype(cfg.dtype)
+
+    def conv(path, x):
+        dtype = torch.float32 if path[-1] in ("scale", "bias") else dt
+        return torch.from_numpy(np.array(x, np.float32)).to(dev, dtype)
+
+    def walk(path, t):
+        if isinstance(t, dict):
+            return {k: walk(path + (k,), v) for k, v in t.items()}
+        return conv(path, t)
+
+    return walk((), tree)
+
+
+def params_to_jax(params: dict) -> dict:
+    """The port's parameters as a JAX-layout tree of float32 numpy arrays
+    (numpy has no bfloat16; a bf16 value is exact in float32)."""
+    return tree_map(lambda t: t.detach().float().cpu().numpy(), params)
+
+
+def _layer(cfg: LMConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
+           attn_impl: str) -> torch.Tensor:
+    h = L.apply_norm(cfg.norm, p["ln1"], x)
+    h = L.multihead_attention(
+        p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        causal=True, window=cfg.window if cfg.attention == "window" else 0,
+        positions=positions, theta=cfg.rope_theta, attn_impl=attn_impl,
+        q_chunk=cfg.attn_q_chunk,
+        scores_dtype=L.compute_dtype(cfg.attn_scores_dtype))
+    x = x + h
+    h = L.apply_norm(cfg.norm, p["ln2"], x)
+    return x + L.mlp(p["mlp"], h, cfg.mlp_act)
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """The vocab projection with fp32 results, as the JAX package's
+    ``preferred_element_type=float32`` product (the bf16 inputs widened:
+    their products are exact in fp32)."""
+    head_w = (params["tok_embed"].T if cfg.tie_embeddings
+              else params["head"]["w"])
+    return torch.matmul(x.float(), head_w.float())
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+            last_logit_only: bool = False, attn_impl: str = "einsum"):
+    """tokens: (B, S) int -> (logits (B, S, V) fp32, aux_loss).
+
+    ``last_logit_only`` (prefill serving): the vocab projection runs on the
+    final position only."""
+    _check(cfg)
+    dt = L.compute_dtype(cfg.dtype)
+    S = tokens.shape[1]
+    x = params["tok_embed"][tokens].to(dt)
+    positions = torch.arange(S, device=tokens.device)[None, :]
+    for i in range(cfg.n_layers):
+        x = _layer(cfg, _index(params["layers"], i), x, positions, attn_impl)
+    x = L.apply_norm(cfg.norm, params["final_ln"], x)
+    if last_logit_only:
+        x = x[:, -1:, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(params, x, cfg), aux
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+            attn_impl: str = "einsum") -> torch.Tensor:
+    """Prefill forward (no cache write-back; returns last-position logits
+    (B, 1, V) fp32)."""
+    return forward(params, tokens, cfg, last_logit_only=True,
+                   attn_impl=attn_impl)[0]
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               dtype: Optional[torch.dtype] = None,
+               device: DeviceLike = "cuda") -> dict:
+    dev = resolve_device(device)
+    dt = dtype or L.compute_dtype(cfg.dtype)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def decode_step(params: dict, cache: dict, token: torch.Tensor,
+                cache_len: int, cfg: LMConfig):
+    """One decode step. token: (B, 1) int; cache_len: the number of filled
+    slots (a Python int).
+
+    Returns (logits (B, 1, V) fp32, cache). The cache is updated in place
+    at slot ``cache_len`` of every layer and returned (the JAX package
+    returns a new one). Attention is linear in the cache length."""
+    _check(cfg)
+    dt = L.compute_dtype(cfg.dtype)
+    x = params["tok_embed"][token].to(dt)
+    for i in range(cfg.n_layers):
+        p = _index(params["layers"], i)
+        h = L.apply_norm(cfg.norm, p["ln1"], x)
+        h, _, _ = L.decode_attention(
+            p["attn"], h, cache["k"][i], cache["v"][i], cache_len,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            theta=cfg.rope_theta,
+            window=cfg.window if cfg.attention == "window" else 0)
+        x = x + h
+        h = L.apply_norm(cfg.norm, p["ln2"], x)
+        x = x + L.mlp(p["mlp"], h, cfg.mlp_act)
+    x = L.apply_norm(cfg.norm, params["final_ln"], x)
+    return _logits(params, x, cfg), cache

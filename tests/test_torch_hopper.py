@@ -9,16 +9,21 @@ products summed in another order) and mean pixel differences to rtol 1e-6.
 ``dequant_topk``'s values and indices must be exact (two fp32 multiplies
 in one order, then a ranking), and so must ``topk``'s (a ranking of the
 input bits). The interpret-mode ``dequant_topk`` and ``topk`` run k
-passes, so their cases keep k and C small.
+passes, so their cases keep k and C small. ``flash_attention``'s plain
+version agrees with the Pallas kernel and with the JAX package's plain
+version at the JAX tests' own tolerances: atol = rtol = 2e-5 in fp32 (the
+online softmax sums in another order), atol 3e-2 in bf16.
 The CUDA kernels themselves are held against the plain versions in
 ``test_torch_hopper_cuda.py``, which runs on the card.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.data.bgsub import match_flat as jax_match_flat
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.hopper import ops, ref
 
 
@@ -178,8 +183,11 @@ def test_cpu_tensors_take_the_plain_version():
     ops.dequant_topk(torch.ones(4, 8, dtype=torch.uint8), torch.ones(4), 3)
     ops.topk(torch.ones(4, 8), 3)
     ops.motion_gate(torch.ones(8, 8, 3), torch.zeros(8, 8, 3), 0.05, 0.08)
+    ops.flash_attention(torch.ones(1, 4, 2, 16), torch.ones(1, 4, 2, 16),
+                        torch.ones(1, 4, 2, 16))
     assert ops.LAUNCHES == {"centroid_assign": 0, "pixel_match": 0,
-                            "dequant_topk": 0, "topk": 0, "motion_gate": 0}
+                            "dequant_topk": 0, "topk": 0, "motion_gate": 0,
+                            "flash_attention": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -351,3 +359,52 @@ def test_motion_gate_plain_version_on_the_cpu_matches_jax():
 def test_motion_gate_rejects_bad_inputs(f, bg, tile):
     with pytest.raises(ValueError):
         ops.motion_gate(f, bg, 0.05, 0.08, tile=tile)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention (tests/test_kernels.py's cases)
+# ---------------------------------------------------------------------------
+
+
+
+def _qkv(shape, seed, dtype=np.float32):
+    r = np.random.default_rng(seed)
+    return [r.normal(size=shape).astype(dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("S,dh,causal", [
+    (16, 16, True), (64, 32, True), (64, 32, False), (128, 64, True),
+    (50, 16, True), (96, 128, False), (1, 32, True),
+])
+def test_flash_attention_plain_matches_jax(S, dh, causal):
+    q, k, v = _qkv((2, S, 3, dh), S + dh)
+    got = ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                              causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (2, S, 3, dh)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    for want in (jops.flash_attention(jq, jk, jv, causal=causal, bq=32,
+                                      bk=32),
+                 jref.flash_attention_ref(jq, jk, jv, causal=causal)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_plain_bf16_matches_jax():
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16)
+                  for x in _qkv((2, 32, 2, 32), 2))
+    got = ops.flash_attention(
+        *(torch.from_numpy(np.asarray(x, np.float32)).bfloat16()
+          for x in (jq, jk, jv)), causal=True)
+    assert got.dtype == torch.bfloat16
+    want = jops.flash_attention(jq, jk, jv, causal=True, bq=16, bk=16)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=3e-2)
+
+
+def test_flash_attention_rejects_mismatched_shapes():
+    with pytest.raises(ValueError):
+        ops.flash_attention(torch.ones(1, 4, 2, 16), torch.ones(1, 5, 2, 16),
+                            torch.ones(1, 4, 2, 16))
+    with pytest.raises(ValueError):
+        ops.flash_attention(torch.ones(4, 2, 16), torch.ones(4, 2, 16),
+                            torch.ones(4, 2, 16))

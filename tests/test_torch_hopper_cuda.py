@@ -12,7 +12,14 @@ mean pixel differences to rtol 1e-6. ``dequant_topk``'s and ``topk``'s
 values and indices must be exact, and so must the saved bytes of the
 fused pipeline against the staged path on the card, and ``motion_gate``'s
 new background, tile means and hot mask (bitwise: the EMA is rounded
-step by step and the tile sums are exact in fp64).
+step by step and the tile sums are exact in fp64). ``flash_attention``
+agrees with its plain version to atol = rtol = 2e-5 in fp32 (the JAX
+package's own tolerance: the online softmax sums in another order) and to
+one bf16 ulp in bf16, rtol 2**-7 with atol 1e-4 (both round one fp32
+result to bf16 once, and those fp32 results differ only in summation
+order, so the outputs are equal or one ulp apart; one ulp is at most 2**-7
+of the value, and atol covers values so small that the fp32 difference
+spans ulps).
 """
 import numpy as np
 import pytest
@@ -296,3 +303,50 @@ def test_background_subtractor_on_the_card_equals_the_cpu(cuda):
     assert ops.LAUNCHES["motion_gate"] - before == 299
     assert n_boxes > 0
     assert (card.background == cpu.background).all()
+
+
+def _flash_pair(q, k, v, causal):
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    return got.float().cpu().numpy(), want.float().cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,dh,causal", [
+    (4, 2048, 16, 128, True),            # the olmo-1b prefill's shape
+    (2, 1, 3, 64, True), (2, 50, 3, 16, True), (1, 1000, 2, 32, True),
+    (2, 96, 3, 128, False), (2, 64, 3, 32, False), (2, 130, 2, 16, False),
+])
+def test_flash_attention_kernel_matches_plain_fp32(cuda, B, S, H, dh,
+                                                    causal):
+    r = np.random.default_rng(S + dh)
+    q, k, v = (_t(r.normal(size=(B, S, H, dh)), cuda) for _ in range(3))
+    got, want = _flash_pair(q, k, v, causal)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,causal", [(2048, True), (77, False)])
+def test_flash_attention_kernel_matches_plain_bf16(cuda, S, causal):
+    r = np.random.default_rng(S)
+    q, k, v = (_t(r.normal(size=(4, S, 16, 128)), cuda).bfloat16()
+               for _ in range(3))
+    got, want = _flash_pair(q, k, v, causal)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 48, device=cuda)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q, q)                 # dh not built
+    q = torch.zeros(1, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                            q.transpose(1, 2))

@@ -102,6 +102,11 @@ def test_default_init_is_the_ports_seeded_tree_and_generic_trains():
     want = cnn.init_params(a.cfg, seed=0)
     for x, y in zip(jax.tree.leaves(a.params), jax.tree.leaves(want)):
         np.testing.assert_array_equal(x, y)
+    # the port's seeded tree is the JAX package's: threefry, bit for bit
+    jwant = jcnn.init(jax.random.PRNGKey(0),
+                      JCheapCNNConfig(**dataclasses.asdict(a.cfg)))
+    for x, y in zip(jax.tree.leaves(a.params), jax.tree.leaves(jwant)):
+        np.testing.assert_array_equal(x, np.asarray(y))
     g = train_generic(crops, labels, dataclasses.replace(BASE, n_classes=5),
                       steps=4, batch_size=8, device="cpu")
     assert isinstance(g, SpecializedModel) and g.class_map is None
