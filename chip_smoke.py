@@ -11,14 +11,16 @@ Phases, each fatal on failure (no phase's failure is caught):
    six Hopper kernels from ``src/repro_torch/hopper/csrc``;
 2. every kernel against its plain PyTorch version on the card, at the
    main path's shapes plus ragged, tie, dead-slot, threshold-edge and
-   empty cases, with its time, the plain version's, one PyTorch library
-   call's (a yardstick only; the port never calls it; none computes
-   ``motion_gate``'s function) and its bound; ``topk`` is timed on a batch
-   of the cheap CNN's own probabilities, ``motion_gate`` at the stream's
+   empty cases, with its design, its time, the plain version's, one
+   PyTorch library call's (a yardstick only; the port never calls it;
+   none computes ``motion_gate``'s function) and its bound; ``topk`` is
+   timed on a batch of the cheap CNN's own probabilities (with a -0.0
+   against +0.0 tie among its checks), ``motion_gate`` at the stream's
    128 x 128 frames and at 720p, ``flash_attention`` at the LM prefill's
-   (B=4, S=2048, H=16, dh=128) in bf16 against SDPA, after the fp32 and
-   bf16 cases, ragged S, every head width, full attention and a
-   grouped-KV layer through ``layers.multihead_attention``;
+   (B=4, S=2048, H=16, dh=128) in bf16 against SDPA, with its achieved
+   TFLOP/s on the bf16 tensor cores, after the fp32 and bf16 cases,
+   ragged S, every head width, full attention and a grouped-KV layer
+   through ``layers.multihead_attention``;
 3. the default serve path of ``repro_torch.launch.serve`` (no
    ``--model/--K/--T``) on the busiest stream (jacksonh, 120 s at 30 fps,
    4 tenants, 3 rounds): it trains spec1-spec3 (each logged loss finite,
@@ -380,13 +382,16 @@ def _topk_pair(ops, ref, x, k):
 def check_topk(ops, ref, dev, probs):
     """``topk`` against its plain version: the cheap CNN's own batch at
     the pipeline's shape (512 x 1000, k = 1000), ties everywhere, k < C,
-    ragged C, a row of equal values in each, a planted tie and B = 0."""
+    ragged C, the widest row (12288 columns, 16384 keys), one past a power
+    of two, a row of equal values in each, a planted tie, -0.0 against
+    +0.0 and B = 0."""
     import numpy as np
     import torch
     r = np.random.default_rng(3)
     errs = [_topk_pair(ops, ref, probs, probs.shape[1])[0]]
     for B, C, k, levels in ((512, 1000, 1000, 4), (64, 1000, 10, None),
-                            (33, 37, 5, None), (7, 130, 130, 2)):
+                            (33, 37, 5, None), (7, 130, 130, 2),
+                            (3, 12288, 1, None), (9, 1025, 1025, 3)):
         x = r.random((B, C), dtype=np.float32)
         if levels is not None:
             x = np.floor(x * levels).astype(np.float32)
@@ -396,6 +401,15 @@ def check_topk(ops, ref, dev, probs):
     _, i = _topk_pair(ops, ref, torch.tensor([[1.0, 3, 3, 2, 3]],
                                              device=dev), 3)
     check(i.tolist() == [[1, 2, 4]], f"topk ties: {i}")
+    # -0.0 ties with +0.0 (the JAX kernel compares with ==): held to the
+    # plain version on the CPU, the values bit for bit
+    z = torch.tensor([[0.0, -0.0, 0.5, -0.0, 0.0]])
+    v, i = ops.topk(z.to(dev), 5)
+    vr, ir = ref.topk_ref(z, 5)
+    v, i = v.cpu(), i.cpu()
+    check(i.tolist() == ir.tolist() == [[2, 0, 1, 3, 4]]
+          and torch.equal(v.view(torch.int32), vr.view(torch.int32)),
+          f"topk signed zeros: {i.tolist()} {v.tolist()}")
     n0 = ops.LAUNCHES["topk"]
     v, i = ops.topk(torch.zeros(0, 1000, device=dev), 7)
     check(v.shape == (0, 7) and i.shape == (0, 7)
@@ -406,7 +420,8 @@ def check_topk(ops, ref, dev, probs):
 def topk_entry(ops, ref, probs, peaks):
     """``topk`` timed on one full batch of the cheap CNN's probabilities
     (the pipeline's shape and data), against its plain version and the
-    library's stable descending sort."""
+    library's stable descending sort (the same function: ties to the
+    lowest column)."""
     import torch
     B, C = probs.shape
     k = C
@@ -511,6 +526,8 @@ def kernel_phase(ops, ref, dev, crops, probs, peaks):
     ca_ops = 2 * B * M * D
     ca = {
         "name": "centroid_assign", "route": "cuda",
+        "design": "SIMT fp32, features in smem, a centroid per thread, "
+                  "online argmin",
         "source": "src/repro_torch/hopper/csrc/centroid_assign.cu",
         "replaces": "src/repro/kernels/centroid_assign.py:89",
         "shape": [B, M, D],
@@ -543,25 +560,35 @@ def kernel_phase(ops, ref, dev, crops, probs, peaks):
         }
 
     pm = {"name": "pixel_match", "route": "cuda",
+          "design": "a warp per pair, 16-byte loads, fp64 sums, ranges "
+                    "merged in order",
           "source": "src/repro_torch/hopper/csrc/pixel_diff.cu",
           "replaces": "src/repro/kernels/pixel_diff.py:77",
           "max_abs_err": pm_err, **pm_entry(*tracker)}
     pm_gate = {"name": "pixel_match", **pm_entry(*gate)}
     dq = {"name": "dequant_topk", "route": "cuda",
+          "design": "a block per row, dequantized in smem, rank by "
+                    "counting (C^2)",
           "source": "src/repro_torch/hopper/csrc/dequant_topk.cu",
           "replaces": "src/repro/kernels/dequant_topk.py:56",
           "max_abs_err": dq_err}
     tk = {"name": "topk", "route": "cuda",
+          "design": "bitonic sort, 64-bit (value, column) keys, a block "
+                    "per row, shuffles below stride 32",
           "source": "src/repro_torch/hopper/csrc/topk.cu",
           "replaces": "src/repro/kernels/topk_mask.py:42",
           "max_abs_err": tk_err, **topk_entry(ops, ref, probs, peaks)}
     mg = {"name": "motion_gate", "route": "cuda",
+          "design": "one launch per frame: grid-stride EMA, a thread per "
+                    "tile, fp64 tile sums",
           "source": "src/repro_torch/hopper/csrc/motion_gate.cu",
           "replaces": "src/repro/kernels/frame_gate.py:51",
           "max_abs_err": 0.0, **gate_entry(ops, ref, *gate_path, peaks)}
     mg_720p = {"name": "motion_gate", "cases": gate_cases,
                **gate_entry(ops, ref, *gate_big, peaks)}
     fa = {"name": "flash_attention", "route": "cuda",
+          "design": "bf16: mma.sync m16n8k16, p split hi/lo, cp.async x2, "
+                    "64-row tiles; fp32: SIMT",
           "source": "src/repro_torch/hopper/csrc/flash_attention.cu",
           "replaces": "src/repro/kernels/flash_attention.py:78",
           **fa_checks, **flash_entry(ops, ref, *fa_path, peaks)}
@@ -596,9 +623,10 @@ def check_flash_attention(ops, ref, dev, cfg):
     """``flash_attention`` against its plain version at the JAX package's
     fp32 tolerance (``tests/test_kernels.py``), atol = rtol = 2e-5, and in
     bf16 to one ulp, rtol 2**-7 with atol 1e-4 (both round one fp32 result
-    to bf16 once, and those differ only in summation order); at the LM
-    path's shape in both types, ragged S, every built
-    head width, causal and full; and one grouped-KV layer through
+    to bf16 once; those differ by the order of the sums and by the
+    kernel's split of p into two bf16 terms, about 2**-17 of p); at the
+    LM path's shape in both types, ragged S, every built head width,
+    causal and full; and one grouped-KV layer through
     ``layers.multihead_attention``'s flash route against its einsum route
     (atol 1e-4, the JAX package's tolerance for that comparison)."""
     import numpy as np
@@ -617,6 +645,12 @@ def check_flash_attention(ops, ref, dev, cfg):
     bf16.append(_flash_pair(ops, ref, *(t((2, 77, H, dh), torch.bfloat16)
                                         for _ in range(3)), False, 1e-4,
                             2 ** -7))
+    for d_ in (16, 32, 64):             # every head width, ragged tiles
+        for s_, causal in ((129, True), (65, False), (1, True)):
+            bf16.append(_flash_pair(ops, ref, *(t((2, s_, 3, d_),
+                                                  torch.bfloat16)
+                                                for _ in range(3)),
+                                    causal, 1e-4, 2 ** -7))
     fp32 = [_flash_pair(ops, ref, *(x.float() for x in path), True, 2e-5,
                         2e-5)]
     shapes = [(2, s, 3, 64, True) for s in (1, 50, 1000)]
@@ -645,34 +679,39 @@ def check_flash_attention(ops, ref, dev, cfg):
 def flash_entry(ops, ref, q, k, v, peaks):
     """``flash_attention`` timed at the LM path's shape (causal bf16).
     Bound by operations: the causal half of the two products, S(S+1)/2
-    score pairs per head at 2*dh operations each per product; q.k^T has
-    bf16 operands, so it goes at the bf16 tensor-core peak, and p.v at
-    fp32's (p stays fp32, as the JAX kernel keeps it), the two times added.
-    Bytes: q, k, v read once, the output written once. Beside it, the same
-    operations all at fp32's peak and all at bf16's tensor-core peak. SDPA
-    on the (B, H, S, dh) view is the library yardstick, never called by
-    the port."""
+    score pairs per head at 2*dh operations each per product. q.k^T has
+    bf16 operands; p.v has fp32 p (the JAX kernel keeps it fp32), which is
+    p_hi + p_lo, two bf16 terms, against bf16 v: so all of it runs on the
+    bf16 tensor cores, q.k^T once and p.v twice (``tensor_gflop``). Bytes:
+    q, k, v read once, the output written once. Beside it, the bound with
+    p.v at fp32's peak (``bound_p_fp32_ms``, the bound before the split);
+    ``tensor_tflops`` is the tensor work over the kernel's time. SDPA on
+    the (B, H, S, dh) view is the library yardstick, never called by the
+    port."""
     import torch
     import torch.nn.functional as F
     B, S, H, dh = q.shape
+    check(q.dtype == torch.bfloat16, "flash_entry times the bf16 path")
     n_ops = 2 * B * H * dh * S * (S + 1)
+    tensor_ops = n_ops / 2 + 2 * n_ops / 2
     n_bytes = 4 * q.numel() * q.element_size()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    qk_peak = peaks["bf16_tc"] if q.dtype == torch.bfloat16 else peaks["fp32"]
-    op_s = n_ops / 2 / qk_peak + n_ops / 2 / peaks["fp32"]
+    op_s = tensor_ops / peaks["bf16_tc"]
     by_s = n_bytes / peaks["bytes"]
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
     return {
         "shape": [B, S, H, dh], "dtype": str(q.dtype), "causal": True,
-        "gflop": n_ops / 1e9, "mbytes": n_bytes / 1e6,
-        "ms": time_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+        "gflop": n_ops / 1e9, "tensor_gflop": tensor_ops / 1e9,
+        "mbytes": n_bytes / 1e6,
+        "ms": ms, "tensor_tflops": tensor_ops / ms / 1e9,
         "plain_ms": time_ms(
             lambda: ref.flash_attention_ref(q, k, v, causal=True)),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)),
         "bound_ms": 1e3 * max(op_s, by_s),
         "bound_by": "operations" if op_s > by_s else "bytes",
-        "bound_fp32_ms": 1e3 * n_ops / peaks["fp32"],
-        "bound_bf16_tensor_core_ms": 1e3 * n_ops / peaks["bf16_tc"],
+        "bound_p_fp32_ms": 1e3 * max(n_ops / 2 / peaks["bf16_tc"]
+                                     + n_ops / 2 / peaks["fp32"], by_s),
     }
 
 

@@ -22,9 +22,12 @@ LAUNCHES = {"centroid_assign": 0, "pixel_match": 0, "dequant_topk": 0,
 # head widths the flash_attention kernel is built for (the JAX tests' set)
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
 
-# widest row the dequant_topk and topk kernels rank: their fp32 copy of one
-# row lives in 48 KB of shared memory (kRankMaxC in csrc/rank_topk.cuh)
-DEQUANT_MAX_C = TOPK_MAX_C = 48 * 1024 // 4
+# widest row the dequant_topk kernel ranks: its fp32 copy of one row lives
+# in 48 KB of shared memory (kRankMaxC in csrc/rank_topk.cuh)
+DEQUANT_MAX_C = 48 * 1024 // 4
+# widest row the topk kernel sorts: 12288 columns pad to 16384 64-bit keys,
+# 128 KB of shared memory (kMaxC in csrc/topk.cu)
+TOPK_MAX_C = 12288
 
 
 def reset_launches():
@@ -222,7 +225,8 @@ def topk(x: torch.Tensor, k: int):
         raise ValueError("topk: the kernel takes contiguous rows")
     if C > TOPK_MAX_C:
         raise ValueError(f"topk: C={C} exceeds the kernel's {TOPK_MAX_C} "
-                         f"columns (one fp32 row in 48 KB of shared memory)")
+                         f"columns (a row's keys in 128 KB of shared "
+                         f"memory)")
     err = build.load().topk_launch(x.data_ptr(), vals.data_ptr(),
                                    idx.data_ptr(), B, C, k, _stream(dev))
     _raise_on(err, "topk")
@@ -289,7 +293,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``H * dh`` instead of transposing to (B*H, S, dh) as the JAX package's
     wrapper does; the plain version keeps JAX's layout. The kernel takes
     contiguous float32 or bfloat16 tensors of one dtype with dh in
-    ``FLASH_HEAD_DIMS``."""
+    ``FLASH_HEAD_DIMS``; bfloat16 ones must start on 16 bytes (it copies
+    rows in 16-byte pieces)."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must all be (B, S, H, dh), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -313,6 +318,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: the kernel takes contiguous "
                          "(B, S, H, dh) tensors")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                          for t in (q, k, v)):
+        raise ValueError("flash_attention: bfloat16 q, k, v must start on "
+                         "16 bytes")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

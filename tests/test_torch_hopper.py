@@ -307,6 +307,18 @@ def test_topk_ties_go_to_the_lowest_column():
     assert idx.tolist() == [[1, 2, 4], [0, 1, 2]]
 
 
+def test_topk_signed_zeros_tie():
+    """-0.0 and +0.0 compare equal, so they tie and go to the lowest
+    column, in the JAX kernel and the plain version alike; the values
+    written are the input bits, signs included."""
+    x = np.array([[0.0, -0.0, 0.5, -0.0, 0.0],
+                  [-0.0, -1.0, 0.0, -0.0, -2.0]], np.float32)
+    vals, idx = _assert_topk_eq(x, 5)
+    assert idx.tolist() == [[2, 0, 1, 3, 4], [0, 2, 3, 1, 4]]
+    np.testing.assert_array_equal(
+        vals.view(np.uint32), np.take_along_axis(x, idx, 1).view(np.uint32))
+
+
 def test_topk_empty_batch():
     vals, idx = ops.topk(torch.zeros(0, 12), 4)
     assert vals.shape == (0, 4) and idx.shape == (0, 4)

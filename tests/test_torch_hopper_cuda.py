@@ -16,10 +16,11 @@ step by step and the tile sums are exact in fp64). ``flash_attention``
 agrees with its plain version to atol = rtol = 2e-5 in fp32 (the JAX
 package's own tolerance: the online softmax sums in another order) and to
 one bf16 ulp in bf16, rtol 2**-7 with atol 1e-4 (both round one fp32
-result to bf16 once, and those fp32 results differ only in summation
-order, so the outputs are equal or one ulp apart; one ulp is at most 2**-7
-of the value, and atol covers values so small that the fp32 difference
-spans ulps).
+result to bf16 once, and those fp32 results differ only by the order of
+the sums and the kernel's split of p into two bf16 terms, about 2**-17
+of p, so the outputs are equal or one ulp apart; one ulp is at most
+2**-7 of the value, and atol covers values so small that the fp32
+difference spans ulps).
 """
 import numpy as np
 import pytest
@@ -178,6 +179,8 @@ def _topk_pair(x, k):
     (33, 37, 5, None),                   # ragged C
     (7, 130, 130, 2),
     (5, 1, 1, None),
+    (3, 12288, 1, None),                 # the widest row: 16384 keys
+    (9, 1025, 1025, 3),                  # one past a power of two
 ])
 def test_topk_kernel_matches_plain(cuda, B, C, k, levels):
     r = np.random.default_rng(B + C + k)
@@ -200,6 +203,24 @@ def test_topk_kernel_ties_empty_and_errors(cuda):
         ops.topk(torch.zeros(2, 8, device=cuda).T, 1)   # not contiguous
     with pytest.raises(ValueError):
         ops.topk(torch.zeros(2, 8, dtype=torch.float16, device=cuda), 1)
+
+
+@pytest.mark.cuda
+def test_topk_kernel_signed_zeros_tie(cuda):
+    """-0.0 and +0.0 tie and go to the lowest column, as in the JAX kernel
+    and the plain version on the CPU; the values are the input bits."""
+    x = torch.tensor([[0.0, -0.0, 0.5, -0.0, 0.0],
+                      [-0.0, -1.0, 0.0, -0.0, -2.0]])
+    before = ops.LAUNCHES["topk"]
+    v, i = ops.topk(x.to(cuda), 5)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["topk"] == before + 1
+    v, i = v.cpu(), i.cpu()
+    assert i.tolist() == [[2, 0, 1, 3, 4], [0, 2, 3, 1, 4]]
+    vr, ir = ref.topk_ref(x, 5)
+    assert torch.equal(i, ir)
+    bits = torch.take_along_dim(x, i.long(), 1).view(torch.int32)
+    assert torch.equal(v.view(torch.int32), bits)
 
 
 @pytest.mark.cuda
@@ -330,10 +351,15 @@ def test_flash_attention_kernel_matches_plain_fp32(cuda, B, S, H, dh,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,causal", [(2048, True), (77, False)])
-def test_flash_attention_kernel_matches_plain_bf16(cuda, S, causal):
-    r = np.random.default_rng(S)
-    q, k, v = (_t(r.normal(size=(4, S, 16, 128)), cuda).bfloat16()
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 129, 2048])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_flash_attention_kernel_matches_plain_bf16(cuda, S, causal, dh):
+    """Every ragged edge of the 64-row tiles, every head width; B*H = 64
+    (the LM prefill's 4 x 16) at S = 2048."""
+    B, H = (4, 16) if S == 2048 else (2, 3)
+    r = np.random.default_rng(S + dh)
+    q, k, v = (_t(r.normal(size=(B, S, H, dh)), cuda).bfloat16()
                for _ in range(3))
     got, want = _flash_pair(q, k, v, causal)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=2 ** -7)
@@ -350,3 +376,7 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         ops.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
                             q.transpose(1, 2))
+    off = torch.zeros(q.numel() + 1, dtype=torch.bfloat16,
+                      device=cuda)[1:].view(q.shape)  # 2 bytes off
+    with pytest.raises(ValueError):
+        ops.flash_attention(off, off, off)
