@@ -4,6 +4,9 @@ H100: the quickest proof that the port builds, is right, and serves on
 the card.
 
   python3 chip_smoke.py                 # from the root of a checkout
+  python3 chip_smoke.py --compare DIR   # the default serve and the 600 s
+                                        # one-shot, the tree at DIR (a
+                                        # parent commit) against this one
 
 Phases, each fatal on failure (no phase's failure is caught):
 
@@ -13,7 +16,15 @@ Phases, each fatal on failure (no phase's failure is caught):
    main path's shapes plus ragged, tie, dead-slot, threshold-edge and
    empty cases, with its design, its time, the plain version's, one
    PyTorch library call's (a yardstick only; the port never calls it;
-   none computes ``motion_gate``'s function) and its bound; ``topk`` is
+   none computes ``motion_gate``'s function nor ``pixel_match`` over
+   ranges) and its bound, each time both host-inclusive (CUDA events
+   around 50 calls) and on the device (``torch.profiler``);
+   ``pixel_match`` is timed on the tracker's window of a 120 s one-shot
+   ingest (7373 crops, each against its previous frame, one launch),
+   with a 20000-row range merged inside the launch among its checks, and
+   the tracker itself is timed batched against a per-frame loop of
+   launches over the same 120 s (roots identical, and equal to the
+   CPU's); ``centroid_assign`` must run at least a block per SM; ``topk`` is
    timed on a batch of the cheap CNN's own probabilities (with a -0.0
    against +0.0 tie among its checks), ``motion_gate`` at the stream's
    128 x 128 frames and at 720p, ``flash_attention`` at the LM prefill's
@@ -77,7 +88,8 @@ Phases, each fatal on failure (no phase's failure is caught):
    reduced LM are bitwise equal on the card and on the CPU;
 5. where the ingest time goes: wall time per stage on a 120 s cut, for
    the override path's cheap1 (K=1000, T=0.4) and for the default path's
-   chosen model at its K and T.
+   chosen model at its K and T; then each path's ``pixel_match`` and
+   ``centroid_assign`` launches on one line.
 
 Earlier lines are JSON objects, one per line; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card, or when
@@ -181,6 +193,71 @@ def time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=50):
+    """Device time per call from one CUDA-graph replay of ``iters`` calls
+    (no host launch cost between them). ``fn`` must be capturable: no
+    host sync, no pageable copy."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+DEVICE_TIME_SOURCE = {}         # how device times were taken in this run
+
+
+def device_ms(fn, iters=20, capturable=True):
+    """Device time per call: the card's kernel, copy and memset durations
+    summed under ``torch.profiler`` over ``iters`` calls after a warm-up.
+    Where the profiler sees no device time, a CUDA-graph replay of 50
+    calls for a capturable ``fn``, else None (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0)
+             for e in prof.key_averages())
+    if us > 0:
+        DEVICE_TIME_SOURCE["profiler"] = True
+        return us / iters / 1e3
+    DEVICE_TIME_SOURCE["graph"] = True
+    return graph_ms(fn) if capturable else None
+
+
+def timings(kernel, plain, library=None, plain_iters=50):
+    """The kernel's, the plain version's and the library call's times:
+    host-inclusive CUDA-event means (``ms``, ``plain_ms``, ``library_ms``)
+    and device times beside them (``device_ms``, ...). The plain versions
+    read ranges or thresholds from the host, so their device time comes
+    from the profiler only."""
+    out = {"ms": time_ms(kernel), "device_ms": device_ms(kernel),
+           "plain_ms": time_ms(plain, iters=plain_iters),
+           "plain_device_ms": device_ms(plain, iters=min(20, plain_iters),
+                                        capturable=False),
+           "library_ms": None, "library_device_ms": None}
+    if library is not None:
+        out.update(library_ms=time_ms(library),
+                   library_device_ms=device_ms(library))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -236,6 +313,17 @@ def check_centroid_assign(ops, ref, dev):
     fe[1, 0] = np.nextafter(np.float32(0.8), np.float32(1))
     _, j, m = _assign_pair(ops, ref, t(fe), t(np.zeros((8, D))), 0.8)
     check(m.tolist() == [True, False], "fp32 T^2 edge")
+    # zero features against centroids of +0.0 and -0.0 entries: every
+    # partial score is +0.0, the dot products either sign; ties go to 1
+    cz = np.ones((5, D), np.float32)
+    cz[1], cz[2], cz[3] = -0.0, 0.0, -0.0
+    cz[3, ::2] = 0.0
+    _, j, m = _assign_pair(ops, ref, t(np.zeros((3, D))), t(cz), 0.5)
+    check(j.tolist() == [1, 1, 1] and m.all(), f"signed zeros: {j}")
+    # ragged B and M, and the default serve's M = 2048 (live slots only)
+    errs.append(_assign_pair(ops, ref, t(r.normal(size=(130, D))),
+                             t(r.normal(size=(333, D))), 15.5)[0])
+    errs.append(_assign_pair(ops, ref, t(f), t(c[:2048]), T)[0])
     return max(errs), (t(f), t(dead), T)
 
 
@@ -288,9 +376,62 @@ def check_pixel_match(ops, ref, dev, crops):
                        float(np.nextafter(np.float32(0.5), np.float32(1))))
     check((m == 0).all(), "ties go to the lowest index")
     # an empty side: all -1 and inf, no launch
+    n0 = ops.LAUNCHES["pixel_match"]
     m, d = ops.pixel_match(t(z), t(np.zeros((0, D))), 0.5)
-    check((m.cpu().numpy() == -1).all() and torch.isinf(d).all(), "empty")
-    return max(errs), tracker, gate
+    check((m.cpu().numpy() == -1).all() and torch.isinf(d).all()
+          and ops.LAUNCHES["pixel_match"] == n0, "empty")
+    # one 20000-row range, split over the card and merged in the launch;
+    # a planted pair of equal nearest rows far apart (the lower wins)
+    b = r.random((20000, D), dtype=np.float32)
+    b[17000] = b[4321]
+    a = r.random((4, D), dtype=np.float32)
+    a[0] = np.clip(b[4321] + r.normal(0, 0.01, D), 0, 1)
+    lo = torch.zeros(4, dtype=torch.int32, device=dev)
+    hi = torch.full((4,), 20000, dtype=torch.int32, device=dev)
+    err, m = _ranges_pair(ops, ref, t(a), t(b), lo, hi, 0.2)
+    errs.append(err)
+    check(m.tolist() == [4321, -1, -1, -1], f"long range: {m}")
+    window = tracker_window(crops, frames, dev)
+    err, m = _ranges_pair(ops, ref, *window, 0.02)
+    errs.append(err)
+    check(bool((window[3] > window[2]).any()), "tracker window: no range")
+    return max(errs), tracker, gate, window
+
+
+def _ranges_pair(ops, ref, a, b, lo, hi, thr):
+    """``pixel_match_ranges`` against its plain version: one launch,
+    indices exact, means to rtol 1e-6."""
+    import numpy as np
+    import torch
+    n0 = ops.LAUNCHES["pixel_match"]
+    m, d = ops.pixel_match_ranges(a, b, lo, hi, thr)
+    check(ops.LAUNCHES["pixel_match"] == n0 + 1, "one launch per call")
+    mr, dr = ref.pixel_match_ranges_ref(a, b, lo, hi, thr)
+    torch.cuda.synchronize()
+    m, d, mr, dr = (x.cpu().numpy() for x in (m, d, mr, dr))
+    check((m == mr).all(), f"pixel_match_ranges differs at "
+          f"{np.nonzero(m != mr)[0][:5].tolist()}")
+    fin = np.isfinite(dr)
+    check((np.isfinite(d) == fin).all(), "empty ranges differ")
+    np.testing.assert_allclose(d[fin], dr[fin], rtol=1e-6)
+    return float(np.abs(d[fin] - dr[fin]).max()) if fin.any() else 0.0, m
+
+
+def tracker_window(crops, frames, dev):
+    """The tracker's launch on a one-shot ingest of ``crops``: the whole
+    frame-sorted stream in one buffer (it fits one window), each crop's
+    range the rows of its previous frame. Returns (a, b, lo, hi) on the
+    card, a a view into b."""
+    import numpy as np
+    import torch
+    order = np.argsort(frames, kind="stable")
+    fs = frames[order]
+    rows = torch.from_numpy(np.ascontiguousarray(
+        crops[order].reshape(len(fs), -1), np.float32)).to(dev)
+    lo = np.searchsorted(fs, fs - 1, side="left")
+    hi = np.searchsorted(fs, fs - 1, side="right")
+    bounds = torch.from_numpy(np.stack([lo, hi]).astype(np.int32)).to(dev)
+    return rows, rows, bounds[0], bounds[1]
 
 
 def _dequant_pair(ops, ref, q, s, k, sg):
@@ -357,11 +498,10 @@ def dequant_entry(ops, ref, dev, prefix, K, peaks):
     return {
         "shape": [M, C, k], "dtype": str(q.dtype).replace("torch.", ""),
         "max_abs_err": err,
-        "ms": time_ms(lambda: ops.dequant_topk(q, s, k, global_scale=sg)),
-        "plain_ms": time_ms(lambda: ref.dequant_topk_ref(q, s, k, sg)),
-        "library_ms": time_ms(lambda: torch.sort(
-            q.float() * (sg_t * s)[:, None], dim=1, descending=True,
-            stable=True)),
+        **timings(lambda: ops.dequant_topk(q, s, k, global_scale=sg),
+                  lambda: ref.dequant_topk_ref(q, s, k, sg),
+                  lambda: torch.sort(q.float() * (sg_t * s)[:, None], dim=1,
+                                     descending=True, stable=True)),
         "bound_ms": 1e3 * n_bytes / peaks["bytes"], "bound_by": "bytes",
     }
 
@@ -428,10 +568,9 @@ def topk_entry(ops, ref, probs, peaks):
     n_bytes = 4 * B * C + 8 * B * k
     return {
         "shape": [B, C, k],
-        "ms": time_ms(lambda: ops.topk(probs, k)),
-        "plain_ms": time_ms(lambda: ref.topk_ref(probs, k)),
-        "library_ms": time_ms(lambda: torch.sort(
-            probs, dim=1, descending=True, stable=True)[1][:, :k]),
+        **timings(lambda: ops.topk(probs, k), lambda: ref.topk_ref(probs, k),
+                  lambda: torch.sort(probs, dim=1, descending=True,
+                                     stable=True)[1][:, :k]),
         "bound_ms": 1e3 * n_bytes / peaks["bytes"], "bound_by": "bytes",
     }
 
@@ -502,70 +641,100 @@ def gate_entry(ops, ref, f, bg, peaks, tile=8):
     n_bytes = 3 * H * W * 3 * 4 + n_tiles * 5
     return {
         "shape": [H, W, 3], "tile": tile,
-        "ms": time_ms(lambda: ops.motion_gate(f, bg, 0.05, 0.08, tile=tile)),
-        "plain_ms": time_ms(
-            lambda: ref.motion_gate_ref(f, bg, 0.05, 0.08, tile)),
-        "library_ms": None,
+        **timings(lambda: ops.motion_gate(f, bg, 0.05, 0.08, tile=tile),
+                  lambda: ref.motion_gate_ref(f, bg, 0.05, 0.08, tile)),
         "bound_ms": 1e3 * n_bytes / peaks["bytes"], "bound_by": "bytes",
     }
 
 
 def kernel_phase(ops, ref, dev, crops, probs, peaks):
+    import numpy as np
     import torch
+    from repro_torch.hopper import build
     fa_checks, fa_path = check_flash_attention(ops, ref, dev, lm_config())
     ca_err, (f, c, T) = check_centroid_assign(ops, ref, dev)
-    pm_err, tracker, gate = check_pixel_match(ops, ref, dev, crops)
+    pm_err, tracker, gate, _ = check_pixel_match(ops, ref, dev, crops)
     dq_err = check_dequant_topk(ops, ref, dev)
     tk_err = check_topk(ops, ref, dev, probs)
     gate_cases, gate_path, gate_big = check_motion_gate(
         ops, ref, dev, list(get_frames("jacksonh", 2)))
 
-    B, D = f.shape
-    M = c.shape[0]
-    ca_bytes = (B * D + M * D) * 4 + B * 9
-    ca_ops = 2 * B * M * D
-    ca = {
-        "name": "centroid_assign", "route": "cuda",
-        "design": "SIMT fp32, features in smem, a centroid per thread, "
-                  "online argmin",
-        "source": "src/repro_torch/hopper/csrc/centroid_assign.cu",
-        "replaces": "src/repro/kernels/centroid_assign.py:89",
-        "shape": [B, M, D],
-        "max_abs_err": ca_err,
-        "ms": time_ms(lambda: ops.centroid_assign(f, c, threshold=T)),
-        "plain_ms": time_ms(lambda: ref.centroid_assign_ref(f, c, T)),
-        "library_ms": time_ms(
-            lambda: torch.cdist(f, c).pow(2).min(1)),
-        "bound_ms": 1e3 * max(ca_ops / peaks["fp32"],
-                              ca_bytes / peaks["bytes"]),
-        "bound_by": ("operations" if ca_ops / peaks["fp32"]
-                     > ca_bytes / peaks["bytes"] else "bytes"),
-    }
+    def ca_entry(f, c):
+        B, D = f.shape
+        M = c.shape[0]
+        ca_bytes = (B * D + M * D) * 4 + B * 9
+        ca_ops = 2 * B * M * D
+        out = {"shape": [B, M, D],
+               "blocks": build.load().centroid_assign_blocks(B, M),
+               **timings(lambda: ops.centroid_assign(f, c, threshold=T),
+                         lambda: ref.centroid_assign_ref(f, c, T),
+                         lambda: torch.cdist(f, c).pow(2).min(1)),
+               "bound_ms": 1e3 * max(ca_ops / peaks["fp32"],
+                                     ca_bytes / peaks["bytes"]),
+               "bound_by": ("operations" if ca_ops / peaks["fp32"]
+                            > ca_bytes / peaks["bytes"] else "bytes")}
+        out["device_tflops"] = ca_ops / out["device_ms"] / 1e9
+        return out
 
-    def pm_entry(a, b):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ca = {"name": "centroid_assign", "route": "cuda",
+          "design": "SIMT fp32 register tiles 64x128 (8x4 a thread), "
+                    "k-steps of 16 double-buffered, argmin keys merged "
+                    "by atomicMin, last block per row tile finishes",
+          "source": "src/repro_torch/hopper/csrc/centroid_assign.cu",
+          "replaces": "src/repro/kernels/centroid_assign.py:89",
+          "max_abs_err": ca_err, "sms": sms, **ca_entry(f, c)}
+    check(ca["blocks"] >= sms, f"centroid_assign runs {ca['blocks']} "
+          f"blocks on {sms} SMs")
+    ca_2048 = {"name": "centroid_assign", **ca_entry(f, c[:2048])}
+
+    def pm_entry(a, b, lo=None, hi=None):
+        """Timed at one shape; the bound counts the pairs these ranges
+        hold and each row of the buffer read once."""
         Na, Dp = a.shape
         Nb = b.shape[0]
-        n = Na * Nb * Dp
+        if lo is None:
+            pairs, n_rows = Na * Nb, Na + Nb
+            kernel = lambda: ops.pixel_match(a, b, 0.02)        # noqa: E731
+            plain = lambda: ref.pixel_match_ref(a, b, 0.02)     # noqa: E731
+            library = lambda: (torch.cdist(a, b, p=1) / Dp).min(1)  # noqa
+        else:
+            pairs = int((hi - lo).clamp(min=0).sum())
+            shared = (a.untyped_storage().data_ptr()
+                      == b.untyped_storage().data_ptr())
+            n_rows = Nb if shared else Na + Nb
+            kernel = lambda: ops.pixel_match_ranges(a, b, lo, hi, 0.02)  # noqa
+            plain = lambda: ref.pixel_match_ranges_ref(a, b, lo, hi, 0.02)  # noqa
+            library = None      # no one PyTorch call matches per range
+        n = pairs * Dp
         # per element: an fp32 subtract and abs, an fp64 add
         op_s = n * (2 / peaks["fp32"] + 1 / peaks["fp64"])
-        by_s = ((Na + Nb) * Dp * 4 + Na * 8) / peaks["bytes"]
+        by_s = (n_rows * Dp * 4 + Na * 8
+                + (0 if lo is None else 8 * Na)) / peaks["bytes"]
         return {
-            "shape": [Na, Nb, Dp],
-            "ms": time_ms(lambda: ops.pixel_match(a, b, 0.02)),
-            "plain_ms": time_ms(lambda: ref.pixel_match_ref(a, b, 0.02)),
-            "library_ms": time_ms(
-                lambda: (torch.cdist(a, b, p=1) / Dp).min(1)),
+            "shape": [Na, Nb, Dp], "pairs": pairs,
+            **timings(kernel, plain, library,
+                      plain_iters=50 if lo is None else 3),
             "bound_ms": 1e3 * max(op_s, by_s),
             "bound_by": "operations" if op_s > by_s else "bytes",
         }
 
+    from repro_torch.data.video import get_stream
+    crops_120, frames_120 = get_stream("jacksonh", duration_s=120,
+                                       fps=30).objects_array()[:2]
+    window = tracker_window(crops_120, frames_120, dev)
     pm = {"name": "pixel_match", "route": "cuda",
-          "design": "a warp per pair, 16-byte loads, fp64 sums, ranges "
-                    "merged in order",
+          "design": "a warp per pair, 16-byte loads, fp64 sums, a range "
+                    "per row; one launch per tracker window, long ranges "
+                    "split and merged in the launch by atomicMin",
           "source": "src/repro_torch/hopper/csrc/pixel_diff.cu",
           "replaces": "src/repro/kernels/pixel_diff.py:77",
-          "max_abs_err": pm_err, **pm_entry(*tracker)}
+          "max_abs_err": pm_err, "path_shape": "tracker window, 120 s "
+          "one-shot", **pm_entry(*window)}
     pm_gate = {"name": "pixel_match", **pm_entry(*gate)}
+    pm_frame = {"name": "pixel_match", "path_shape": "one frame pair "
+                "(a per-frame tracker's call)", **pm_entry(*tracker)}
+    del window
     dq = {"name": "dequant_topk", "route": "cuda",
           "design": "a block per row, dequantized in smem, rank by "
                     "counting (C^2)",
@@ -592,7 +761,11 @@ def kernel_phase(ops, ref, dev, crops, probs, peaks):
           "source": "src/repro_torch/hopper/csrc/flash_attention.cu",
           "replaces": "src/repro/kernels/flash_attention.py:78",
           **fa_checks, **flash_entry(ops, ref, *fa_path, peaks)}
-    return ca, pm, pm_gate, dq, tk, mg, mg_720p, fa
+    extra = {"centroid_assign_default_serve_shape": ca_2048,
+             "pixel_match_gate_shape": pm_gate,
+             "pixel_match_frame_shape": pm_frame,
+             "motion_gate_720p": mg_720p}
+    return ca, pm, dq, tk, mg, fa, extra
 
 
 def lm_config(**overrides):
@@ -698,16 +871,15 @@ def flash_entry(ops, ref, q, k, v, peaks):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     op_s = tensor_ops / peaks["bf16_tc"]
     by_s = n_bytes / peaks["bytes"]
-    ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+    t = timings(lambda: ops.flash_attention(q, k, v, causal=True),
+                lambda: ref.flash_attention_ref(q, k, v, causal=True),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True))
     return {
         "shape": [B, S, H, dh], "dtype": str(q.dtype), "causal": True,
         "gflop": n_ops / 1e9, "tensor_gflop": tensor_ops / 1e9,
-        "mbytes": n_bytes / 1e6,
-        "ms": ms, "tensor_tflops": tensor_ops / ms / 1e9,
-        "plain_ms": time_ms(
-            lambda: ref.flash_attention_ref(q, k, v, causal=True)),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
+        "mbytes": n_bytes / 1e6, **t,
+        "tensor_tflops": tensor_ops / t["ms"] / 1e9,
         "bound_ms": 1e3 * max(op_s, by_s),
         "bound_by": "operations" if op_s > by_s else "bytes",
         "bound_p_fp32_ms": 1e3 * max(n_ops / 2 / peaks["bf16_tc"]
@@ -721,6 +893,91 @@ def get_frames(stream, n=None, duration=120):
     from repro_torch.data.video import get_stream
     return get_stream(stream, duration_s=duration, fps=30).frames(
         max_frames=n)
+
+
+def tracker_turns(ops, dev, duration=120):
+    """The §4.2 tracker over the same stream two ways, in turns per-frame,
+    batched, batched, per-frame: one ``ops.pixel_match`` call per frame
+    with objects (its crops and the previous frame's uploaded, matched,
+    read back), as a per-frame tracker runs, against
+    ``pixel_tracks`` on the card (one ``pixel_match_ranges`` launch per
+    window). Host wall with the card synchronised; the per-frame loop's
+    uploads are timed apart inside it, and the batched path's one upload
+    of the same bytes is timed alone. The roots must be identical, and
+    equal to the CPU's."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ingest import pixel_tracks
+    from repro_torch.core.streaming import frame_groups
+    from repro_torch.data.video import get_stream
+
+    crops, frames = get_stream("jacksonh", duration_s=duration,
+                               fps=30).objects_array()[:2]
+    order = np.argsort(frames, kind="stable")
+    fs = frames[order]
+    flat = np.ascontiguousarray(crops[order].reshape(len(fs), -1),
+                                np.float32)
+
+    def per_frame():
+        roots = np.arange(len(fs))
+        h2d = 0.0
+        prev = None
+        for f, i, j in frame_groups(fs, 0, len(fs)):
+            r = order[i:j].astype(np.int64)
+            if prev is not None and prev[0] == f - 1:
+                t0 = time.perf_counter()
+                a = torch.from_numpy(flat[i:j]).to(dev)
+                b = torch.from_numpy(flat[prev[1]:prev[2]]).to(dev)
+                torch.cuda.synchronize()
+                h2d += time.perf_counter() - t0
+                m = ops.pixel_match(a, b, 0.02)[0].cpu().numpy()
+                hit = m >= 0
+                r[hit] = prev[3][m[hit]]
+            roots[order[i:j]] = r
+            prev = (f, i, j, r)
+        return roots, h2d
+
+    def batched():
+        return pixel_tracks(crops, frames, 0.02, device="cuda"), None
+
+    runs, roots = [], {}
+    for mode in ("per_frame", "batched", "batched", "per_frame"):
+        fn = per_frame if mode == "per_frame" else batched
+        n0 = ops.LAUNCHES["pixel_match"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, h2d = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if h2d is None:                 # the same bytes, uploaded alone
+            t1 = time.perf_counter()
+            torch.from_numpy(flat).to(dev)
+            torch.cuda.synchronize()
+            h2d = time.perf_counter() - t1
+        roots.setdefault(mode, got)
+        check(np.array_equal(got, roots[mode]), f"{mode} roots moved")
+        runs.append({"mode": mode, "wall_s": wall, "h2d_s": h2d,
+                     "launches": ops.LAUNCHES["pixel_match"] - n0})
+    check(np.array_equal(roots["per_frame"], roots["batched"]),
+          "batched and per-frame tracker roots differ")
+    check(np.array_equal(roots["batched"],
+                         pixel_tracks(crops, frames, 0.02, device="cpu")),
+          "card and CPU tracker roots differ")
+    # jacksonh's duplicates sit just above 0.02 (ROADMAP C1), so few or no
+    # crops track at the path's threshold: hold the two tracker paths and
+    # the CPU to each other where many do
+    loose = {dev_: pixel_tracks(crops, frames, 0.03, device=dev_)
+             for dev_ in ("cuda", "cpu")}
+    check(np.array_equal(loose["cuda"], loose["cpu"]),
+          "card and CPU tracker roots differ at 0.03")
+    tracked_loose = int((loose["cpu"] != np.arange(len(fs))).sum())
+    check(tracked_loose > 0, "nothing tracks at 0.03")
+    return {"duration_s": duration, "objects": int(len(fs)),
+            "frames_with_objects": int(len(np.unique(fs))),
+            "crop_mbytes": flat.nbytes / 1e6,
+            "tracked": int((roots["batched"] != np.arange(len(fs))).sum()),
+            "tracked_at_0.03": tracked_loose,
+            "roots_identical": True, "runs": runs}
 
 
 # ---------------------------------------------------------------------------
@@ -1540,7 +1797,7 @@ def breakdown(apply, cfg, class_kw, duration=120):
 
     stages = [(C, "_phase1", "phase1_kernel"), (C, "_fold_matched", "fold"),
               (C, "_scan_unmatched", "unmatched_scan"),
-              (S, "pixel_difference", "pixel_tracker"),
+              (S, "match_ranges", "pixel_tracker"),
               (TopKIndex, "add_batch", "index_fold")]
     originals = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in stages]
     for (obj, attr, name), (_, _, fn) in zip(stages, originals):
@@ -1560,6 +1817,94 @@ def breakdown(apply, cfg, class_kw, duration=120):
             "stages_s": spent, "calls": calls,
             "other_s": total - sum(spent.values()), **{
                 f"scan_{k}_rows": v for k, v in rows.items()}}
+
+
+# one served path in a process of its own, from the ``src`` directory of
+# the tree given first; a fresh model cache, so every run trains alike
+COMPARE_CHILD = r"""
+import hashlib, json, sys, tempfile, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.core import clustering as C
+from repro_torch.core import streaming as S
+from repro_torch.hopper import ops
+from repro_torch.launch import serve, zoo
+spent = {}
+
+
+def timed(name, fn):
+    def wrapper(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        return out
+    return wrapper
+
+
+# the tracker's matcher, whichever the tree has (per frame or per window)
+for attr in ("pixel_difference", "match_ranges"):
+    if hasattr(S, attr):
+        setattr(S, attr, timed("pixel_tracker", getattr(S, attr)))
+C._scan_unmatched = timed("unmatched_scan", C._scan_unmatched)
+with tempfile.TemporaryDirectory() as cache:
+    zoo.CACHE_DIR = cache
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = serve.main(json.loads(sys.argv[2]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+answers = json.dumps({str(k): [int(f) for f in v]
+                      for k, v in report["answers"].items()}, sort_keys=True)
+print(json.dumps({
+    "wall_s": wall, "launches": dict(ops.LAUNCHES), "stages_s": spent,
+    "answers_sha256": hashlib.sha256(answers.encode()).hexdigest(),
+    "choice": (report.get("selection") or {}).get("choice"),
+    **{k: report.get(k) for k in ("objects", "clusters", "ingest_s",
+                                  "ingest_objects_per_s", "precision",
+                                  "recall")}}))
+"""
+
+
+def compare(parent_root, smi):
+    """The default serve (120 s) and the 600 s one-shot override path, each
+    run by the parent tree at ``parent_root`` and by this checkout in
+    turns parent, change, change, parent, each in a process of its own:
+    host wall, ingest rate, launches and the summed wall of two ingest
+    stages (the tracker's matcher and the unmatched scan, the card
+    synchronised around each call) side by side; the answers, the
+    clusters and the choice must be identical in all four runs."""
+    base = ["--stream", "jacksonh", "--fps", "30", "--tenants", "4",
+            "--rounds", "3", "--device", "cuda"]
+    paths = {"default_120s": base + ["--duration", "120"],
+             "oneshot_600s": base + ["--duration", "600", "--model",
+                                     "cheap1", "--seed", "0", "--K", "1000",
+                                     "--T", "0.4"]}
+    trees = {"parent": os.path.join(os.path.abspath(parent_root), "src"),
+             "change": SRC}
+    for tree in trees.values():
+        check(os.path.isdir(os.path.join(tree, "repro_torch")),
+              f"no repro_torch under {tree}")
+    for path, argv in paths.items():
+        runs = []
+        for tree in ("parent", "change", "change", "parent"):
+            out = subprocess.run(
+                [sys.executable, "-c", COMPARE_CHILD, trees[tree],
+                 json.dumps(argv)], capture_output=True, text=True,
+                timeout=600)
+            check(out.returncode == 0, f"{tree} {path} failed:\n"
+                  f"{out.stderr[-3000:]}")
+            runs.append({"tree": tree, **json.loads(
+                out.stdout.strip().splitlines()[-1])})
+        same = {(r["answers_sha256"], r["clusters"], json.dumps(r["choice"]))
+                for r in runs}
+        check(len(same) == 1, f"{path}: parent and change answer "
+              f"differently: {same}")
+        emit({"phase": f"compare_{path}", "gpu": smi, "argv": argv,
+              "runs": runs, "answers_identical": True,
+              "elapsed_s": elapsed()})
 
 
 def main():
@@ -1595,6 +1940,11 @@ def main():
           "cuda": torch.version.cuda, "peaks": peaks,
           "build_s": time.perf_counter() - t0,
           "nvcc_s": build.build_seconds})
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare":
+        compare(sys.argv[2], smi)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     # -- phase 2: kernels against plain versions ------------------------------
     crops, frames = get_stream("jacksonh", duration_s=10,
@@ -1604,10 +1954,13 @@ def main():
     forward = cnn.make_forward(cnn.build(mcfg, cnn.init_params(mcfg, seed=0),
                                          dev))
     probs = forward(torch.from_numpy(crops[:512]).to(dev))[0].contiguous()
-    ca, pm, pm_gate, dq, tk, mg, mg_720p, fa = kernel_phase(
+    ca, pm, dq, tk, mg, fa, extra = kernel_phase(
         ops, ref, dev, (crops, frames), probs, peaks)
-    emit({"phase": "kernels", "gpu": smi, "pixel_match_gate_shape": pm_gate,
-          "motion_gate_720p": mg_720p, "elapsed_s": elapsed()})
+    emit({"phase": "kernels", "gpu": smi, **extra,
+          "device_time_source": sorted(DEVICE_TIME_SOURCE),
+          "elapsed_s": elapsed()})
+    emit({"phase": "tracker", "gpu": smi, **tracker_turns(ops, dev),
+          "elapsed_s": elapsed()})
 
     # -- phase 3: the served paths -------------------------------------------
     def drive(path, path_argv, kernels, duration):
@@ -1721,6 +2074,11 @@ def main():
           "elapsed_s": elapsed()})
     check(elapsed() < LIMIT_S, f"over the {LIMIT_S} s limit")
 
+    emit({"phase": "launches_per_path", "gpu": smi, **{
+        name: {"oneshot_600s": oneshot[name], "archive_600s": archive[name],
+               "pipeline_600s": pipe["launches"][name],
+               "default_serve_120s": default[name]}
+        for name in ("pixel_match", "centroid_assign")}})
     emit({"kernels": [ca, pm, dq, tk, mg, fa]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

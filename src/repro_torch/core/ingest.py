@@ -63,24 +63,24 @@ def pixel_tracks(crops: np.ndarray, frames: np.ndarray, threshold: float,
     Objects in frame t whose pixels nearly match an object in frame t-1
     join that object's track (and will share its cluster) without a CNN
     pass. Thin one-shot view over the streaming ``_PixelTracker`` — the
-    same code path ingest uses.
+    same code path ingest uses, one ``pixel_match`` launch per window of
+    ``_PixelTracker.WINDOW_ROWS`` objects.
     """
-    from repro_torch.core.streaming import _PixelTracker
+    from repro_torch.core.streaming import _PixelTracker, frame_groups
     n = len(crops)
     roots = np.arange(n)
     if n == 0:
         return roots
     order = np.argsort(frames, kind="stable")
+    sorted_frames = np.asarray(frames, np.int64)[order]
     tracker = _PixelTracker(threshold, device)
-    i = 0
-    while i < n:
-        f = int(frames[order[i]])
-        j = i
-        while j < n and frames[order[j]] == f:
-            j += 1
-        ids = order[i:j]
-        roots[ids] = tracker.resolve(f, crops[ids], ids.astype(np.int64))
-        i = j
+    step = _PixelTracker.WINDOW_ROWS
+    for w0 in range(0, n, step):
+        w1 = min(n, w0 + step)
+        tracker.prepare(sorted_frames[w0:w1], crops[order[w0:w1]])
+        for f, i, j in frame_groups(sorted_frames, w0, w1):
+            ids = order[i:j]
+            roots[ids] = tracker.resolve(f, ids.astype(np.int64))
     return roots
 
 

@@ -43,7 +43,7 @@ from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.core import clustering as C
 from repro_torch.core.index import ClassMap, TopKIndex
 from repro_torch.core.ingest import IngestConfig, IngestStats
-from repro_torch.data.bgsub import match_flat, pixel_difference
+from repro_torch.data.bgsub import match_flat, match_ranges
 
 
 @dataclass
@@ -62,6 +62,17 @@ class IngestDelta:
     # shard has since been sealed — what an ArchiveQueryEngine prefetches
 
 
+def frame_groups(frames: np.ndarray, lo: int, hi: int):
+    """``(f, i, j)`` for each run of equal frames in ``frames[lo:hi]``
+    (frame-sorted)."""
+    i = lo
+    while i < hi:
+        f = int(frames[i])
+        j = i + int(np.searchsorted(frames[i:hi], f, side="right"))
+        yield f, i, j
+        i = j
+
+
 class _PixelTracker:
     """Streaming §4.2 pixel differencing.
 
@@ -70,7 +81,21 @@ class _PixelTracker:
     accepting members until a later frame appears), while the previous
     frame's completed group — crops and resolved root ids — is retained
     for matching. Requires frames to arrive in non-decreasing order.
+
+    A match depends only on crops, never on roots, so ``prepare`` matches
+    a whole frame-sorted window in one ``pixel_match`` launch: the window's
+    crops and the retained crops it may reference are uploaded once, each
+    crop's range is the rows of frame f-1 among them (empty when there is
+    none), and the match indices come back in one read. ``resolve`` then
+    turns the window's matches into roots one frame group at a time, in
+    order, so a root rewritten by ``amend_last`` is what the next frame's
+    matches chain to.
     """
+
+    # new crops matched per launch: 8192 crops of 32 x 32 x 3 fp32 are
+    # ~100 MB on the card (the retained reference crops, at most two frame
+    # groups, come on top)
+    WINDOW_ROWS = 8192
 
     def __init__(self, threshold: float, device: DeviceLike = "cuda"):
         self.threshold = threshold
@@ -81,14 +106,67 @@ class _PixelTracker:
         self._prev_frame: Optional[int] = None
         self._prev_crops: Optional[np.ndarray] = None
         self._prev_roots: Optional[np.ndarray] = None
+        # the prepared window: its crops and frames, each crop's match (an
+        # index into [references, window]), the roots of those rows as far
+        # as resolved, the window's first row there, and the next row due
+        self._win_crops: Optional[np.ndarray] = None
+        self._win_frames: Optional[np.ndarray] = None
+        self._match: Optional[np.ndarray] = None
+        self._roots: Optional[np.ndarray] = None
+        self._base = 0
+        self._cursor = 0
 
-    def resolve(self, f: int, crops: np.ndarray,
-                obj_ids: np.ndarray) -> np.ndarray:
-        """Root object ids for one (possibly partial) frame-``f`` group."""
-        if self._open_frame is not None and f < self._open_frame:
+    def prepare(self, frames: np.ndarray, crops: np.ndarray):
+        """Match a frame-sorted window against each crop's previous frame,
+        in one launch when any crop has one. The window continues the
+        stream; ``resolve`` must then take all of its rows, in order."""
+        if self._match is not None and self._cursor < len(self._match):
+            raise RuntimeError("prepare() before the last window was "
+                               "resolved")
+        frames = np.asarray(frames, np.int64)
+        n = len(frames)
+        f0 = int(frames[0]) if n else None
+        if n and self._open_frame is not None and f0 < self._open_frame:
             raise ValueError(
-                f"frames must be non-decreasing across feeds: got frame {f} "
+                f"frames must be non-decreasing across feeds: got frame {f0} "
                 f"after frame {self._open_frame}")
+        # the retained groups the window can reference: the open frame when
+        # the window continues it or follows it, and the previous frame
+        # when the window continues the open one
+        refs = []
+        if n and self._open_crops and f0 - 1 <= self._open_frame:
+            if f0 == self._open_frame and self._prev_frame == f0 - 1:
+                refs.append((self._prev_frame, self._prev_crops,
+                             self._prev_roots))
+            refs.append((self._open_frame, np.concatenate(self._open_crops),
+                         np.concatenate(self._open_roots)))
+        ref_frames = np.concatenate(
+            [np.full(len(c), fr, np.int64) for fr, c, _ in refs]
+            + [frames])
+        lo = np.searchsorted(ref_frames, frames - 1, side="left")
+        hi = np.searchsorted(ref_frames, frames - 1, side="right")
+        n_ref = len(ref_frames) - n
+        self._match = np.full(n, -1, np.int64)
+        if (hi > lo).any():
+            rows = [c.reshape(len(c), -1) for _, c, _ in refs]
+            rows.append(np.asarray(crops).reshape(n, -1))
+            rows = rows[0] if len(rows) == 1 else np.concatenate(rows)
+            self._match = match_ranges(rows, n_ref, lo, hi, self.threshold,
+                                       device=self.device)
+        self._roots = np.concatenate([r for _, _, r in refs]
+                                     + [np.zeros(n, np.int64)])
+        self._win_crops, self._win_frames = crops, frames
+        self._base, self._cursor = n_ref, 0
+
+    def resolve(self, f: int, obj_ids: np.ndarray) -> np.ndarray:
+        """Root object ids for the next ``len(obj_ids)`` prepared rows, one
+        (possibly partial) frame-``f`` group."""
+        k = len(obj_ids)
+        c0, c1 = self._cursor, self._cursor + k
+        if self._match is None or c1 > len(self._match) \
+                or (self._win_frames[c0:c1] != f).any():
+            raise ValueError(f"resolve(frame {f}, {k} objects) does not "
+                             f"follow the prepared window")
         if self._open_frame is None or f > self._open_frame:
             if self._open_crops:
                 self._prev_frame = self._open_frame
@@ -96,15 +174,14 @@ class _PixelTracker:
                 self._prev_roots = np.concatenate(self._open_roots)
             self._open_frame = f
             self._open_crops, self._open_roots = [], []
-        roots = obj_ids.copy()
-        if self._prev_frame == f - 1 and self._prev_crops is not None \
-                and len(self._prev_crops):
-            match = pixel_difference(crops, self._prev_crops, self.threshold,
-                                     device=self.device)
-            m = match >= 0
-            roots[m] = self._prev_roots[match[m]]
-        self._open_crops.append(crops)
+        roots = np.array(obj_ids, np.int64)
+        m = self._match[c0:c1]
+        hit = m >= 0
+        roots[hit] = self._roots[m[hit]]
+        self._roots[self._base + c0:self._base + c1] = roots
+        self._open_crops.append(self._win_crops[c0:c1])
         self._open_roots.append(roots)
+        self._cursor = c1
         return roots
 
     def amend_last(self, roots: np.ndarray):
@@ -115,7 +192,10 @@ class _PixelTracker:
         match would chain to the crop's own (never-CNN'd, never-folded)
         id and its duplicate record could never attach.
         """
-        self._open_roots[-1] = np.asarray(roots, np.int64)
+        roots = np.asarray(roots, np.int64)
+        self._open_roots[-1] = roots
+        self._roots[self._base + self._cursor - len(roots):
+                    self._base + self._cursor] = roots
 
 
 class _RedundancyGate:
@@ -532,33 +612,40 @@ class StreamingIngestor:
         t0 = time.perf_counter()
         n = len(crops)
         if self.cfg.pixel_diff or self._gate is not None:
-            i = 0
-            while i < n:
-                f = int(frames[i])
-                j = i
-                while j < n and frames[j] == f:
-                    j += 1
-                ids = obj_ids[i:j]
+            # windows of the tracker's size: one pixel_match launch each;
+            # a frame group cut by a window's edge resolves like one cut
+            # by a chunk's
+            step = _PixelTracker.WINDOW_ROWS
+            for w0 in range(0, n, step):
+                w1 = min(n, w0 + step)
                 if self.cfg.pixel_diff:
-                    roots = self._tracker.resolve(f, crops[i:j], ids)
-                    self.stats.n_pixel_dedup += int((roots != ids).sum())
-                else:
-                    roots = ids.copy()
-                if self._gate is not None:
-                    roots = self._gate_segment(f, crops[i:j], ids, roots)
-                uniq = roots == ids
-                self._buf.append(crops[i:j][uniq], ids[uniq],
-                                 frames[i:j][uniq])
-                if not uniq.all():
-                    dup = ~uniq
-                    self._dup_objs.append(ids[dup])
-                    self._dup_frames.append(frames[i:j][dup])
-                    self._dup_roots.append(roots[dup])
-                i = j
+                    self._tracker.prepare(frames[w0:w1], crops[w0:w1])
+                for f, i, j in frame_groups(frames, w0, w1):
+                    self._resolve_segment(f, crops[i:j], frames[i:j],
+                                          obj_ids[i:j])
         else:
             self._buf.append(crops, obj_ids, frames)
         self.stats.wall_s += time.perf_counter() - t0
         self._drain_ready()
+
+    def _resolve_segment(self, f: int, crops: np.ndarray,
+                         frames: np.ndarray, ids: np.ndarray):
+        """Roots for one frame-``f`` segment (tracker, then gate); buffer
+        its uniques and log its duplicates."""
+        if self.cfg.pixel_diff:
+            roots = self._tracker.resolve(f, ids)
+            self.stats.n_pixel_dedup += int((roots != ids).sum())
+        else:
+            roots = ids.copy()
+        if self._gate is not None:
+            roots = self._gate_segment(f, crops, ids, roots)
+        uniq = roots == ids
+        self._buf.append(crops[uniq], ids[uniq], frames[uniq])
+        if not uniq.all():
+            dup = ~uniq
+            self._dup_objs.append(ids[dup])
+            self._dup_frames.append(frames[dup])
+            self._dup_roots.append(roots[dup])
 
     def _gate_segment(self, f: int, crops: np.ndarray, ids: np.ndarray,
                       roots: np.ndarray) -> np.ndarray:

@@ -1,10 +1,11 @@
 """Crop pixel differencing (paper §4.2 "Pixel Differencing of Objects") and
 background subtraction (§6.1).
 
-``match_flat`` is the one matcher behind both the §4.2 frame-to-frame
-tracker and the streaming redundancy gate, so the two agree bit for bit.
-On ``device="cuda"`` it runs the ``pixel_match`` Hopper kernel; on
-``device="cpu"`` the kernel's plain version.
+``match_flat`` (one range: all references) and ``match_ranges`` (a range
+of references per crop) are the matchers behind the streaming redundancy
+gate and the §4.2 frame-to-frame tracker. Both run the one ``pixel_match``
+Hopper kernel on ``device="cuda"`` and its plain version on
+``device="cpu"``, so the two agree bit for bit.
 
 ``BackgroundSubtractor`` excludes frames and regions with no moving
 objects. The paper uses OpenCV MOG2; here an exponential-moving-average
@@ -43,21 +44,24 @@ def match_flat(a: np.ndarray, b: np.ndarray, threshold: float,
     return m.cpu().numpy().astype(np.int64)
 
 
-def pixel_difference(crops_a: np.ndarray, crops_b: np.ndarray,
-                     threshold: float = 0.02,
-                     device: DeviceLike = "cuda") -> np.ndarray:
-    """Pairwise mean-abs-diff of current crops vs. the previous frame's
-    crops; returns for each crop in ``crops_a`` the index of a
-    near-identical crop in ``crops_b`` or -1.
+def match_ranges(rows: np.ndarray, n_ref: int, lo: np.ndarray,
+                 hi: np.ndarray, threshold: float,
+                 device: DeviceLike = "cuda") -> np.ndarray:
+    """Ranged matcher over one buffer: rows (N, D), crops ``rows[n_ref:]``
+    -> (N - n_ref,) int64 indices into ``rows``.
 
-    A crop matches only when its best mean-abs-diff is STRICTLY below
-    ``threshold`` (``< threshold``, not ``<=``); ties between equally
-    close references resolve to the lowest index.
-    """
-    return match_flat(
-        np.asarray(crops_a, np.float32).reshape(len(crops_a), -1),
-        np.asarray(crops_b, np.float32).reshape(len(crops_b), -1),
-        threshold, device=device)
+    Crop i is matched against ``rows[lo[i]:hi[i]]`` only (an empty range
+    matches nothing): ``out[i]`` is the lowest index there minimizing
+    ``mean |crop_i - rows_j|`` when that minimum is STRICTLY below
+    ``threshold``, else -1. ``rows`` is uploaded once, the crops are a
+    view into it, and the match indices come back in one read: one kernel
+    launch for the whole buffer."""
+    dev = resolve_device(device)
+    bt = torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(dev)
+    bounds = torch.from_numpy(np.stack([lo, hi]).astype(np.int32)).to(dev)
+    m, _ = ops.pixel_match_ranges(bt[n_ref:], bt, bounds[0], bounds[1],
+                                  threshold)
+    return m.cpu().numpy().astype(np.int64)
 
 
 class MotionBox(NamedTuple):

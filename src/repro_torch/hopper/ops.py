@@ -10,6 +10,7 @@ through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -18,6 +19,9 @@ from repro_torch.hopper import build, ref
 
 LAUNCHES = {"centroid_assign": 0, "pixel_match": 0, "dequant_topk": 0,
             "topk": 0, "motion_gate": 0, "flash_attention": 0}
+
+# feature rows per centroid_assign block (kBM in csrc/centroid_assign.cu)
+CENTROID_ROWS = 64
 
 # head widths the flash_attention kernel is built for (the JAX tests' set)
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
@@ -74,7 +78,8 @@ def centroid_assign(feats: torch.Tensor, centroids: torch.Tensor,
     """(B, D), (M, D) -> (min squared-L2 (B,) f32, argmin (B,) i32) and,
     with ``threshold``, the fused ``matched (B,) bool`` mask
     (``min_d2 <= threshold**2``, the square taken in fp32). Ties go to the
-    lowest centroid index."""
+    lowest centroid index. One launch (after one memset of its merge
+    keys) per call with B > 0."""
     _check_pair(feats, centroids, "feats/centroids")
     if feats.device.type == "cpu":
         return ref.centroid_assign_ref(feats, centroids, threshold)
@@ -90,10 +95,13 @@ def centroid_assign(feats: torch.Tensor, centroids: torch.Tensor,
     if B:
         t2 = (np.float32(np.inf) if threshold is None
               else np.float32(threshold) ** 2)          # squared in fp32
+        # the in-launch merge's per-row keys and per-row-tile counters
+        scratch = torch.empty((8 * B + 4 * -(-B // CENTROID_ROWS),),
+                              dtype=torch.uint8, device=dev)
         err = build.load().centroid_assign_launch(
             feats.data_ptr(), centroids.data_ptr(), min_d2.data_ptr(),
-            arg.data_ptr(), matched.data_ptr(), B, M, D, float(t2),
-            _stream(dev))
+            arg.data_ptr(), matched.data_ptr(), scratch.data_ptr(), B, M, D,
+            float(t2), _stream(dev))
         _raise_on(err, "centroid_assign")
         LAUNCHES["centroid_assign"] += 1
     if threshold is None:
@@ -101,11 +109,43 @@ def centroid_assign(feats: torch.Tensor, centroids: torch.Tensor,
     return min_d2, arg, matched
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _n_split(device: torch.device, Na: int, Nb: int) -> int:
-    """Ranges of b rows per crop: enough blocks for two per SM, but at
-    least eight rows (one per warp) in each range."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    """Chunks of each row's range over ``blockIdx.y``: enough blocks for
+    two per SM, but at least eight rows (one per warp) in a chunk of the
+    widest possible range, ``Nb`` rows."""
+    sms = _sm_count(device.index if device.index is not None
+                    else torch.cuda.current_device())
     return max(1, min(-(-2 * sms // Na), -(-Nb // 8)))
+
+
+def _pixel_match_launch(a, b, lo, hi, threshold):
+    """One ``pixel_match`` launch; ``lo``/``hi`` None mean every row's
+    range is all of ``b``."""
+    Na, Nb = a.shape[0], b.shape[0]
+    _check_kernel_inputs("pixel_match", a, b)
+    D = a.shape[1]
+    dev = a.device
+    match = torch.empty((Na,), dtype=torch.int32, device=dev)
+    min_d = torch.empty((Na,), dtype=torch.float32, device=dev)
+    n_split = _n_split(dev, Na, Nb)
+    # the in-launch merge's per-row keys and counters (12 bytes a row)
+    scratch = (torch.empty((12 * Na,), dtype=torch.uint8, device=dev)
+               if n_split > 1 else None)
+    err = build.load().pixel_match_launch(
+        a.data_ptr(), b.data_ptr(),
+        lo.data_ptr() if lo is not None else None,
+        hi.data_ptr() if hi is not None else None,
+        match.data_ptr(), min_d.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
+        Na, Nb, D, n_split, float(np.float32(threshold)), _stream(dev))
+    _raise_on(err, "pixel_match")
+    LAUNCHES["pixel_match"] += 1
+    return match, min_d
 
 
 def pixel_match(a: torch.Tensor, b: torch.Tensor, threshold):
@@ -114,29 +154,42 @@ def pixel_match(a: torch.Tensor, b: torch.Tensor, threshold):
     ``match[i]`` is the lowest index j minimizing ``mean |a_i - b_j|`` when
     that minimum is STRICTLY below ``threshold`` (a mean exactly at the
     threshold does not match), else -1. ``Na == 0`` or ``Nb == 0`` gives
-    all -1 and ``inf``: no references means nothing matches."""
+    all -1 and ``inf`` without a launch: no references means nothing
+    matches. The one-range case of ``pixel_match_ranges``: one launch."""
     _check_pair(a, b, "a/b")
     Na, Nb = a.shape[0], b.shape[0]
     if a.device.type == "cpu" or Na == 0 or Nb == 0:
         return ref.pixel_match_ref(a, b, threshold)
-    _check_kernel_inputs("pixel_match", a, b)
-    D = a.shape[1]
-    dev = a.device
-    match = torch.empty((Na,), dtype=torch.int32, device=dev)
-    min_d = torch.empty((Na,), dtype=torch.float32, device=dev)
-    n_split = _n_split(dev, Na, Nb)
-    part_v = part_i = None
-    if n_split > 1:
-        part_v = torch.empty((Na * n_split,), dtype=torch.float32, device=dev)
-        part_i = torch.empty((Na * n_split,), dtype=torch.int32, device=dev)
-    err = build.load().pixel_match_launch(
-        a.data_ptr(), b.data_ptr(), match.data_ptr(), min_d.data_ptr(),
-        part_v.data_ptr() if part_v is not None else None,
-        part_i.data_ptr() if part_i is not None else None,
-        Na, Nb, D, n_split, float(np.float32(threshold)), _stream(dev))
-    _raise_on(err, "pixel_match")
-    LAUNCHES["pixel_match"] += 1
-    return match, min_d
+    return _pixel_match_launch(a, b, None, None, threshold)
+
+
+def pixel_match_ranges(a: torch.Tensor, b: torch.Tensor, lo: torch.Tensor,
+                       hi: torch.Tensor, threshold):
+    """(Na, D), (Nb, D), lo/hi (Na,) i32 -> (match (Na,) i32,
+    min_d (Na,) f32).
+
+    Row i searches only ``b[lo[i]:hi[i]]``: ``match[i]`` is the ABSOLUTE
+    index of the lowest minimiser of ``mean |a_i - b_j|`` there when that
+    minimum is strictly below ``threshold``, else -1; an empty range
+    gives -1 and ``inf``. Ranges may overlap, and ``a`` may be a view into
+    ``b``'s buffer. Ranges are clamped to ``[0, Nb)``, and ``hi <= lo`` is
+    empty. One launch per call, counted under ``LAUNCHES["pixel_match"]``;
+    the ranges stay on the device, unread."""
+    _check_pair(a, b, "a/b")
+    Na, Nb = a.shape[0], b.shape[0]
+    for name, t in (("lo", lo), ("hi", hi)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (Na,):
+            raise ValueError(f"{name} must be ({Na},) int32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != a.device:
+            raise ValueError(f"{name} lies on {t.device}, a on {a.device}")
+    if a.device.type == "cpu":
+        return ref.pixel_match_ranges_ref(a, b, lo, hi, threshold)
+    if Na == 0 or Nb == 0:
+        return ref.pixel_match_ref(a, b, threshold)     # nothing to launch
+    if not (lo.is_contiguous() and hi.is_contiguous()):
+        raise ValueError("pixel_match_ranges: lo and hi must be contiguous")
+    return _pixel_match_launch(a, b, lo, hi, threshold)
 
 
 def dequant_topk(q: torch.Tensor, scales: torch.Tensor, k: int, *,

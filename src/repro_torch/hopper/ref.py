@@ -2,17 +2,22 @@
 path of every wrapper in ``hopper.ops``, and what ``chip_smoke.py`` holds
 each kernel against on the card.
 
-Each follows its TPU counterpart's contract (``repro.kernels.ref``) and
-evaluates in the same order as its CUDA kernel, so the two rank near-ties
-alike:
+Each follows its TPU counterpart's contract (``repro.kernels.ref``). It
+shares with its CUDA kernel what decides an exact result, not every sum's
+order:
 
 * ``centroid_assign_ref`` takes the argmin on the partial score
   ``|c|^2 - 2 f.c`` and adds ``|f|^2`` back afterwards, as both the CUDA
-  kernel and the TPU kernel do;
+  kernel and the TPU kernel do; its ``f @ c.T`` sums in the matrix
+  library's order and the kernel in one fmaf chain over D, so squared
+  distances agree to a tolerance (the kernel scores equal centroids bit
+  for bit alike, so planted ties stay ties);
 * ``pixel_match_ref`` forms ``|a - b|`` in fp32 and sums it in fp64 before
   rounding the mean to fp32 once, as the CUDA kernel does (see
   ``csrc/pixel_diff.cu`` for why), in blocks bounded like the JAX
-  package's blocked numpy matcher;
+  package's blocked numpy matcher; the fp64 sum makes the fp32 mean
+  independent of the order, so the two decide alike bit for bit;
+  ``pixel_match_ranges_ref`` runs it once per run of rows sharing a range;
 * ``dequant_topk_ref`` dequantizes as ``q * (sg * scale_row)``, each
   product one fp32 multiply in that order (the TPU kernel's and the eager
   v4 loader's op order), and ranks with a stable descending sort, so ties
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # pair-elements cap for one (rows, Nb, D) difference block
@@ -84,6 +90,32 @@ def pixel_match_ref(a: torch.Tensor, b: torch.Tensor, threshold):
     j = torch.cat(args).to(torch.int32)
     thr = torch.as_tensor(threshold, dtype=torch.float32).to(a.device)
     return torch.where(min_d < thr, j, torch.full_like(j, -1)), min_d
+
+
+def pixel_match_ranges_ref(a: torch.Tensor, b: torch.Tensor,
+                           lo: torch.Tensor, hi: torch.Tensor, threshold):
+    """a (Na, D), b (Nb, D), lo/hi (Na,) -> (match (Na,) i32, min_d (Na,)
+    f32): row i matched against ``b[lo[i]:hi[i]]`` only (clamped to
+    ``[0, Nb)``; ``hi <= lo`` is empty: -1 and ``inf``), ``match[i]`` the
+    absolute index. Runs ``pixel_match_ref`` once per run of consecutive
+    rows that share a range, so its sums are that function's."""
+    Na, Nb = a.shape[0], b.shape[0]
+    match = torch.full((Na,), -1, dtype=torch.int32, device=a.device)
+    min_d = torch.full((Na,), float("inf"), dtype=torch.float32,
+                       device=a.device)
+    los = lo.cpu().numpy().astype(np.int64).clip(0, Nb)
+    his = hi.cpu().numpy().astype(np.int64).clip(0, Nb)
+    i = 0
+    while i < Na:
+        j = i + 1
+        while j < Na and los[j] == los[i] and his[j] == his[i]:
+            j += 1
+        if his[i] > los[i]:
+            m, d = pixel_match_ref(a[i:j], b[los[i]:his[i]], threshold)
+            match[i:j] = torch.where(m >= 0, m + int(los[i]), m)
+            min_d[i:j] = d
+        i = j
+    return match, min_d
 
 
 def dequant_topk_ref(q: torch.Tensor, scales: torch.Tensor, k: int,

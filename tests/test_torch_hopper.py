@@ -176,10 +176,118 @@ def test_pixel_match_empty_sides():
     assert (m.numpy() == -1).all() and torch.isinf(d).all()
 
 
+def _i32(x):
+    return torch.from_numpy(np.asarray(x, np.int32))
+
+
+def _ranges_case(name):
+    """(a, b, lo, hi, threshold) with a a view into b's rows where the case
+    says so: the ranges the tracker builds, and every edge of a range."""
+    r = np.random.default_rng(len(name))
+    D = 48
+    if name == "tracker":
+        # three frames of 4 crops after a retained frame of 4 references,
+        # all in one buffer; each frame's crops search the previous frame's
+        # rows, and 2 of 3 crops are near duplicates of one there
+        b = r.random((16, D), dtype=np.float32)
+        for i in range(4, 16):
+            if i % 3:
+                b[i] = np.clip(b[i - 4] + r.normal(0, 0.003, D), 0, 1)
+        lo = [0] * 4 + [4] * 4 + [8] * 4
+        hi = [4] * 4 + [8] * 4 + [12] * 4
+        return b[4:], b, lo, hi, 0.02
+    if name == "empty_and_single":
+        b = r.random((9, D), dtype=np.float32)
+        a = r.random((6, D), dtype=np.float32)
+        a[1] = b[3]
+        return a, b, [0, 3, 5, 9, 2, 7], [0, 4, 6, 9, 1, 8], 0.5
+    if name == "overlapping":
+        b = r.random((20, D), dtype=np.float32)
+        a = np.clip(b[[2, 5, 11, 17, 8]] + r.normal(0, 0.01, (5, D)), 0, 1
+                    ).astype(np.float32)
+        return a, b, [0, 2, 4, 0, 10], [9, 9, 12, 20, 20], 0.05
+    if name == "same_buffer":
+        # every row against all rows: itself included, so it matches
+        # itself unless an identical row comes first
+        b = r.random((10, D), dtype=np.float32)
+        b[7] = b[2]
+        return b, b, [0] * 10, [10] * 10, 1e-6
+    if name == "ties":
+        b = r.random((12, D), dtype=np.float32)
+        b[[3, 6, 9]] = b[0]
+        a = np.clip(b[[0, 0, 0]] + r.normal(0, 0.01, (3, D)), 0, 1
+                    ).astype(np.float32)
+        return a, b, [0, 1, 4], [12, 12, 10], 0.5
+    # threshold exactly at a mean: |0 - 0.5| sums exactly in any order
+    b = np.full((4, D), 0.5, np.float32)
+    b[2] = 0.25
+    a = np.zeros((3, D), np.float32)
+    return a, b, [0, 0, 3], [2, 3, 4], 0.5
+
+
+def _jax_ranges(a, b, lo, hi, thr):
+    """The Pallas kernel (interpret mode) once per distinct range, its
+    indices moved to absolute ones."""
+    match = np.full(len(a), -1, np.int64)
+    min_d = np.full(len(a), np.inf, np.float32)
+    for l, h in sorted(set(zip(lo, hi))):
+        rows = [i for i in range(len(a)) if (lo[i], hi[i]) == (l, h)]
+        if h <= l:
+            continue
+        m, d = (np.asarray(x) for x in jops.pixel_match(a[rows], b[l:h], thr))
+        match[rows] = np.where(m >= 0, m + l, -1)
+        min_d[rows] = d
+    return match, min_d
+
+
+@pytest.mark.parametrize("case", ["tracker", "empty_and_single",
+                                  "overlapping", "same_buffer", "ties",
+                                  "threshold_at_mean"])
+def test_pixel_match_ranges_matches_jax(case):
+    a, b, lo, hi, thr = _ranges_case(case)
+    m, d = ops.pixel_match_ranges(_t(a), _t(b), _i32(lo), _i32(hi), thr)
+    assert m.dtype == torch.int32 and d.dtype == torch.float32
+    mj, dj = _jax_ranges(a, b, lo, hi, thr)
+    np.testing.assert_array_equal(m.numpy(), mj)
+    np.testing.assert_allclose(d.numpy(), dj, rtol=1e-6)
+    m, d = m.numpy(), d.numpy()
+    if case == "tracker":
+        assert (m >= 0).sum() == 8
+        assert ((m == -1) | ((m >= np.array(lo)) & (m < np.array(hi)))).all()
+    elif case == "empty_and_single":
+        assert m[0] == m[3] == -1 and np.isinf(d[[0, 3, 4]]).all()
+        assert m[1] == 3                    # a length-1 range, its own row
+    elif case == "same_buffer":
+        assert m.tolist() == [0, 1, 2, 3, 4, 5, 6, 2, 8, 9]
+    elif case == "ties":
+        assert m.tolist() == [0, 3, 6]      # the lowest of each range's ties
+    elif case == "threshold_at_mean":
+        assert m.tolist() == [-1, 2, -1]    # 0.5 does not match at 0.5
+
+
+def test_pixel_match_ranges_clamps_and_validates():
+    a, b, lo, hi, thr = _ranges_case("overlapping")
+    m, _ = ops.pixel_match_ranges(_t(a), _t(b), _i32([-5, 2, 4, 0, 10]),
+                                  _i32([9, 9, 12, 99, 20]), thr)
+    want, _ = ops.pixel_match_ranges(_t(a), _t(b), _i32(lo), _i32(hi), thr)
+    np.testing.assert_array_equal(m.numpy(), want.numpy())
+    with pytest.raises(ValueError):
+        ops.pixel_match_ranges(_t(a), _t(b), _i32(lo).long(), _i32(hi), thr)
+    with pytest.raises(ValueError):
+        ops.pixel_match_ranges(_t(a), _t(b), _i32(lo[:3]), _i32(hi), thr)
+    # no rows to match, or nothing to match against
+    m, d = ops.pixel_match_ranges(_t(a[:0]), _t(b), _i32([]), _i32([]), thr)
+    assert m.shape == d.shape == (0,)
+    m, d = ops.pixel_match_ranges(_t(a), _t(b[:0]), _i32(lo), _i32(hi), thr)
+    assert (m.numpy() == -1).all() and torch.isinf(d).all()
+
+
 def test_cpu_tensors_take_the_plain_version():
     ops.reset_launches()
     ops.centroid_assign(torch.ones(4, 8), torch.zeros(3, 8), threshold=1.0)
     ops.pixel_match(torch.ones(4, 8), torch.zeros(3, 8), 0.1)
+    ops.pixel_match_ranges(torch.ones(4, 8), torch.zeros(3, 8),
+                           _i32([0] * 4), _i32([3] * 4), 0.1)
     ops.dequant_topk(torch.ones(4, 8, dtype=torch.uint8), torch.ones(4), 3)
     ops.topk(torch.ones(4, 8), 3)
     ops.motion_gate(torch.ones(8, 8, 3), torch.zeros(8, 8, 3), 0.05, 0.08)

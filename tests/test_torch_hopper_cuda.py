@@ -52,7 +52,10 @@ def _assert_assign_eq(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,M,D", [(512, 4096, 128), (37, 1000, 128),
-                                   (1, 1, 8), (9, 300, 20)])
+                                   (1, 1, 8), (9, 300, 20),
+                                   (130, 333, 128),     # ragged B and M
+                                   (512, 2048, 128),    # the default serve
+                                   (65, 129, 36)])      # D off the k-step
 def test_centroid_assign_kernel_matches_plain(cuda, B, M, D):
     r = np.random.default_rng(B + M)
     f = r.normal(size=(B, D)).astype(np.float32)
@@ -87,6 +90,105 @@ def test_centroid_assign_kernel_edges(cuda):
 
 
 @pytest.mark.cuda
+def test_centroid_assign_kernel_fills_the_card_and_ties_at_zero(cuda):
+    """(512, 4096) runs at least a block per SM; zero features against
+    centroids of +0.0 and -0.0 entries (partial scores +0.0, dot products
+    of either sign) tie and go to the lowest of them; the duplicated
+    halves of an all-dead table give index 0 and nothing matched."""
+    from repro_torch.hopper import build
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert build.load().centroid_assign_blocks(512, 4096) >= sms
+    D = 128
+    f = np.zeros((3, D), np.float32)
+    f[2, 0] = -1.0
+    c = np.ones((5, D), np.float32)
+    c[1] = -0.0
+    c[2] = 0.0
+    c[3] = -0.0
+    c[3, ::2] = 0.0
+    got = ops.centroid_assign(_t(f, cuda), _t(c, cuda), threshold=0.5)
+    _assert_assign_eq(got, ref.centroid_assign_ref(_t(f, cuda),
+                                                   _t(c, cuda), 0.5))
+    assert got[1].cpu().tolist() == [1, 1, 1]
+    assert got[2].cpu().tolist() == [True, True, False]
+    dead = np.full((4096, D), 1e9, np.float32)
+    dead[2048:] = dead[:2048]
+    _, j, m = ops.centroid_assign(_t(f, cuda), _t(dead, cuda), threshold=0.8)
+    assert (j.cpu().numpy() == 0).all() and not m.cpu().numpy().any()
+
+
+def _ranges_pair(a, b, lo, hi, thr):
+    before = ops.LAUNCHES["pixel_match"]
+    m, d = ops.pixel_match_ranges(a, b, lo, hi, thr)
+    assert ops.LAUNCHES["pixel_match"] == before + 1
+    mr, dr = ref.pixel_match_ranges_ref(a, b, lo, hi, thr)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(m.cpu().numpy(), mr.cpu().numpy())
+    np.testing.assert_allclose(d.cpu().numpy(), dr.cpu().numpy(), rtol=1e-6)
+    return m.cpu().numpy()
+
+
+@pytest.mark.cuda
+def test_pixel_match_ranges_kernel_tracker_ranges(cuda):
+    """A tracker-like window in one buffer: 600 frames of 1-9 crops, each
+    frame's crops against the previous frame's rows (empty across the
+    planted gaps), a third of them near duplicates; one launch."""
+    r = np.random.default_rng(17)
+    D = 3072
+    sizes = r.integers(1, 10, 600)
+    frames = np.repeat(np.arange(600), sizes)
+    frames[frames % 50 == 7] += 1           # gaps: frame 7 joins frame 8
+    n = len(frames)
+    rows = r.random((n, D), dtype=np.float32)
+    prev = np.searchsorted(frames, frames - 1)
+    for i in range(n):
+        if frames[prev[i]] == frames[i] - 1 and r.random() < 0.33:
+            rows[i] = np.clip(rows[prev[i]] + r.normal(0, 0.01, D), 0, 1)
+    lo = np.searchsorted(frames, frames - 1, side="left")
+    hi = np.searchsorted(frames, frames - 1, side="right")
+    n_ref = int(sizes[0])
+    b = _t(rows, cuda)
+    bounds = torch.from_numpy(np.stack([lo, hi])[:, n_ref:].astype(
+        np.int32)).to(cuda)
+    m = _ranges_pair(b[n_ref:], b, bounds[0], bounds[1], 0.02)
+    assert (m >= 0).sum() > n // 5 and (m == -1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Na", [1, 4, 300])
+def test_pixel_match_ranges_kernel_one_long_range(cuda, Na):
+    """One 20000-row range split over the card and merged in the launch:
+    a planted pair of equal nearest rows far apart (the lower wins)."""
+    r = np.random.default_rng(Na)
+    D, Nb = 3072, 20000
+    b = r.random((Nb, D), dtype=np.float32)
+    b[17000] = b[4321]
+    a = r.random((Na, D), dtype=np.float32)
+    a[0] = np.clip(b[4321] + r.normal(0, 0.01, D), 0, 1)
+    lo = torch.zeros(Na, dtype=torch.int32, device=cuda)
+    hi = torch.full((Na,), Nb, dtype=torch.int32, device=cuda)
+    m = _ranges_pair(_t(a, cuda), _t(b, cuda), lo, hi, 0.2)
+    assert m[0] == 4321 and (m[1:] == -1).all()
+    # the same, as a range that starts past the planted pair's lower row
+    lo += 5000
+    m = _ranges_pair(_t(a, cuda), _t(b, cuda), lo, hi, 0.2)
+    assert m[0] == 17000
+
+
+@pytest.mark.cuda
+def test_pixel_match_ranges_kernel_edges(cuda):
+    """Empty, length-1, clamped and overlapping ranges, a view of one
+    buffer, and one launch per call however the ranges split."""
+    r = np.random.default_rng(3)
+    b = _t(r.random((40, 3072), dtype=np.float32), cuda)
+    b[30] = b[5]
+    lo = torch.tensor([0, 31, 9, -3, 31, 0], dtype=torch.int32, device=cuda)
+    hi = torch.tensor([40, 32, 8, 99, 40, 0], dtype=torch.int32, device=cuda)
+    m = _ranges_pair(b[30:36], b, lo, hi, 1e-6)
+    assert m.tolist() == [5, 31, -1, 33, 34, -1]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("Na,Nb,D", [(3, 3, 3072), (4, 512, 3072),
                                      (130, 257, 96), (1, 9, 3072)])
 def test_pixel_match_kernel_matches_plain(cuda, Na, Nb, D):
@@ -95,7 +197,9 @@ def test_pixel_match_kernel_matches_plain(cuda, Na, Nb, D):
     b = r.random((Nb, D), dtype=np.float32)
     b[Nb // 2] = b[0]                            # planted tie
     a[0] = np.clip(b[0] + r.normal(0, 0.01, D), 0, 1)
+    before = ops.LAUNCHES["pixel_match"]
     m, d = ops.pixel_match(_t(a, cuda), _t(b, cuda), 0.2)
+    assert ops.LAUNCHES["pixel_match"] == before + 1   # merged in-launch
     mr, dr = ref.pixel_match_ref(_t(a, cuda), _t(b, cuda), 0.2)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(m.cpu().numpy(), mr.cpu().numpy())

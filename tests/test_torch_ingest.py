@@ -17,11 +17,13 @@ from repro_torch.core.engine import QueryEngine
 from repro_torch.core.index import TopKIndex
 from repro_torch.core.streaming import StreamingIngestor
 from repro_torch.data.video import STREAM_ZOO, get_stream, gt_oracle
+from repro_torch.hopper import ops
 from repro_torch.models import cnn
 
 # ``repro.core`` re-exports the function ``ingest`` under the module's name
 J = importlib.import_module("repro.core.ingest")
 P = importlib.import_module("repro_torch.core.ingest")
+Streaming = importlib.import_module("repro_torch.core.streaming")
 
 FEAT_DIM = 12
 N_CLASSES = 5
@@ -172,13 +174,125 @@ def test_port_chunked_equals_oneshot(seed):
     assert index.save_bytes() == ref.save_bytes()
 
 
-def test_pixel_tracks_match_jax():
+@pytest.mark.parametrize("window", [8192, 7, 1])
+def test_pixel_tracks_match_jax(window, monkeypatch):
+    """One window, and windows whose edges cut frame groups (and every
+    group, at 1 row): the roots stay JAX's."""
+    monkeypatch.setattr(Streaming._PixelTracker, "WINDOW_ROWS", window)
     crops, frames = make_stream(11, n=300, dup_rate=0.6)
-    np.testing.assert_array_equal(
-        P.pixel_tracks(crops, frames, 0.02, device="cpu"),
-        J.pixel_tracks(crops, frames, 0.02))
-    assert (P.pixel_tracks(crops, frames, 0.02, device="cpu")
-            != np.arange(len(crops))).any()
+    got = P.pixel_tracks(crops, frames, 0.02, device="cpu")
+    np.testing.assert_array_equal(got, J.pixel_tracks(crops, frames, 0.02))
+    assert (got != np.arange(len(crops))).any()
+
+
+def _cuts(frames, kind):
+    """Up to three cut positions of one kind in a frame-sorted stream:
+    inside a frame group f whose f-1 is present (the chunk after the cut
+    continues f, its references split between prev and open), inside a
+    group whose f+1 is present (the next frame's reference f-1 is split
+    across the chunks), on a boundary between consecutive frames, and
+    across a frame gap (f-2 -> f: nothing to match)."""
+    f = frames
+    i = np.arange(1, len(f))
+    if kind == "inside_f":
+        ok = (f[i] == f[i - 1]) & np.isin(f[i] - 1, f)
+    elif kind == "inside_f_minus_1":
+        ok = (f[i] == f[i - 1]) & np.isin(f[i] + 1, f)
+    elif kind == "boundary":
+        ok = f[i] == f[i - 1] + 1
+    else:
+        ok = f[i] > f[i - 1] + 1
+    pos = i[ok]
+    assert len(pos), kind
+    return pos[np.linspace(0, len(pos) - 1, 3).astype(int)].tolist()
+
+
+@pytest.fixture(scope="module")
+def gappy_stream():
+    """A duplicate-heavy stream with frame gaps: every fifth frame
+    dropped."""
+    crops, frames = make_stream(5, n=360, dup_rate=0.7)
+    keep = frames % 5 != 3
+    return crops[keep], frames[keep]
+
+
+@pytest.fixture(scope="module")
+def jax_split_refs(gappy_stream):
+    """JAX's one-shot bytes per (gate, frame_stride), computed once."""
+    crops, frames = gappy_stream
+    out = {}
+    for gate in (False, True):
+        for stride in (1, 2):
+            cfg = dict(K=2, threshold=1.5, max_clusters=32, batch_size=32,
+                       gate=gate, frame_stride=stride)
+            ij, _ = J.ingest(crops, frames, _cheap, 1.0, J.IngestConfig(**cfg),
+                             n_local_classes=N_CLASSES)
+            out[gate, stride] = (cfg, ij.save_bytes())
+    return out
+
+
+@pytest.mark.parametrize("window", [8192, 5])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("gate", [False, True])
+@pytest.mark.parametrize("kind", ["inside_f", "inside_f_minus_1", "boundary",
+                                  "gap"])
+def test_split_feeds_match_jax(kind, gate, stride, window, gappy_stream,
+                               jax_split_refs, monkeypatch):
+    """The port fed in chunks cut at one kind of position (and, at window
+    5, with tracker windows cutting groups too) saves JAX's one-shot
+    bytes, with the gate on and off and every or every other frame."""
+    monkeypatch.setattr(Streaming._PixelTracker, "WINDOW_ROWS", window)
+    crops, frames = gappy_stream
+    cfg, want = jax_split_refs[gate, stride]
+    ing = StreamingIngestor(_cheap, 1.0, P.IngestConfig(**cfg),
+                            n_local_classes=N_CLASSES, device="cpu")
+    bounds = [0, *_cuts(frames, kind), len(crops)]
+    for lo, hi in zip(bounds, bounds[1:]):
+        ing.feed(crops[lo:hi], frames[lo:hi])
+        ing.flush()
+    index, stats = ing.finish()
+    assert index.save_bytes() == want
+    assert (stats.n_pixel_dedup > 0) == (stride == 1)
+
+
+def test_tracker_launches_once_per_window(monkeypatch):
+    """``pixel_match_ranges`` runs once per tracker window, never once per
+    frame: a one-shot ingest and ``pixel_tracks`` of 400 objects in ~80
+    frames call it once, 64-row windows once per window, one call per fed
+    chunk, and none when no kept frame has its previous frame."""
+    calls = []
+    real = ops.pixel_match_ranges
+
+    def counted(a, *args, **kw):
+        calls.append(a.shape[0])
+        return real(a, *args, **kw)
+
+    monkeypatch.setattr(ops, "pixel_match_ranges", counted)
+    crops, frames = make_stream(2, n=400, dup_rate=0.6)
+    assert len(np.unique(frames)) > 50
+    cfg = P.IngestConfig(K=2, threshold=1.5, max_clusters=48, batch_size=50)
+    _, stats = P.ingest(crops, frames, _cheap, 1.0, cfg,
+                        n_local_classes=N_CLASSES, device="cpu")
+    assert calls == [400] and stats.n_pixel_dedup > 0
+    calls.clear()
+    P.pixel_tracks(crops, frames, 0.02, device="cpu")
+    assert calls == [400]
+    calls.clear()
+    ing = StreamingIngestor(_cheap, 1.0, cfg, n_local_classes=N_CLASSES,
+                            device="cpu")
+    for lo, hi in ((0, 150), (150, 151), (151, 400)):
+        ing.feed(crops[lo:hi], frames[lo:hi])
+    assert calls == [150, 1, 249]
+    calls.clear()
+    monkeypatch.setattr(Streaming._PixelTracker, "WINDOW_ROWS", 64)
+    P.ingest(crops, frames, _cheap, 1.0, cfg, n_local_classes=N_CLASSES,
+             device="cpu")
+    assert calls == [64] * 6 + [16]
+    calls.clear()
+    P.ingest(crops, frames, _cheap, 1.0,
+             P.IngestConfig(K=2, threshold=1.5, frame_stride=2),
+             n_local_classes=N_CLASSES, device="cpu")
+    assert calls == []
 
 
 def test_empty_stream_keeps_class_width():
