@@ -4,9 +4,11 @@ H100: the quickest proof that the port builds, is right, and serves on
 the card.
 
   python3 chip_smoke.py                 # from the root of a checkout
-  python3 chip_smoke.py --compare DIR   # the default serve and the 600 s
-                                        # one-shot, the tree at DIR (a
-                                        # parent commit) against this one
+  python3 chip_smoke.py --compare DIR   # the default serve, the 600 s
+                                        # one-shot, background subtraction
+                                        # and the shared kernels, the tree
+                                        # at DIR (a parent commit) against
+                                        # this one
 
 Phases, each fatal on failure (no phase's failure is caught):
 
@@ -18,7 +20,8 @@ Phases, each fatal on failure (no phase's failure is caught):
    PyTorch library call's (a yardstick only; the port never calls it;
    none computes ``motion_gate``'s function nor ``pixel_match`` over
    ranges) and its bound, each time both host-inclusive (CUDA events
-   around 50 calls) and on the device (``torch.profiler``);
+   around 50 calls) and on the device (``torch.profiler``, with its
+   device events per call);
    ``pixel_match`` is timed on the tracker's window of a 120 s one-shot
    ingest (7373 crops, each against its previous frame, one launch),
    with a 20000-row range merged inside the launch among its checks, and
@@ -26,8 +29,14 @@ Phases, each fatal on failure (no phase's failure is caught):
    launches over the same 120 s (roots identical, and equal to the
    CPU's); ``centroid_assign`` must run at least a block per SM; ``topk`` is
    timed on a batch of the cheap CNN's own probabilities (with a -0.0
-   against +0.0 tie among its checks), ``motion_gate`` at the stream's
-   128 x 128 frames and at 720p, ``flash_attention`` at the LM prefill's
+   against +0.0 tie among its checks), ``dequant_topk`` also on rows whose
+   distinct levels collide (a scale underflowing to 0, levels overflowing
+   to inf), ``motion_gate_frames`` (one launch per window) on a window of
+   the stream's 128 x 128 frames as background subtraction cuts it, on a
+   720p window, ragged shapes, a window of one, static frames, a tile
+   mean at the threshold and alpha 0 and 1, and timed on the first two,
+   ``motion_gate`` (its one-frame case) at 128 x 128 and at 720p,
+   ``flash_attention`` at the LM prefill's
    (B=4, S=2048, H=16, dh=128) in bf16 against SDPA, with its achieved
    TFLOP/s on the bf16 tensor cores, after the fp32 and bf16 cases,
    ragged S, every head width, full attention and a grouped-KV layer
@@ -38,8 +47,11 @@ Phases, each fatal on failure (no phase's failure is caught):
    each model's last logged loss below its first), sweeps (model, K, T),
    selects, ingests with the chosen model and serves; then §6.1
    background subtraction: the same 120 s as 3600 full frames through
-   ``BackgroundSubtractor(device="cuda")`` (one ``motion_gate`` launch per
-   frame after the first) and ``extract_crops``; then the two override
+   ``BackgroundSubtractor(device="cuda")`` in turns per-frame, windowed,
+   windowed, per-frame (one ``motion_gate`` launch per frame after the
+   first, or one per window through ``process``), boxes and background
+   identical in all four, stages in ms/frame, and ``extract_crops``;
+   then the two override
    paths (``--model cheap1 --seed 0 --K 1000 --T 0.4``: seeded random
    weights rank the same classes first for every crop, so K=1000 makes
    every query reach the GT pass) on jacksonh 600 s with the full-width
@@ -218,43 +230,69 @@ def graph_ms(fn, iters=50):
 DEVICE_TIME_SOURCE = {}         # how device times were taken in this run
 
 
-def device_ms(fn, iters=20, capturable=True):
-    """Device time per call: the card's kernel, copy and memset durations
-    summed under ``torch.profiler`` over ``iters`` calls after a warm-up.
-    Where the profiler sees no device time, a CUDA-graph replay of 50
-    calls for a capturable ``fn``, else None (not measured)."""
+def device_profile(fn, iters=20, tries=3):
+    """(device ms per call, device events per call): the card's kernel,
+    copy and memset durations and their number, summed under
+    ``torch.profiler`` over ``iters`` calls after a warm-up. The profiler
+    can lose events (on an H100, sessions without a warm-up step recorded
+    0.75-0.8 of the calls' events for four kernels in one run, which
+    reads as a shorter device time), so each session records a warm-up
+    step of ``iters`` calls before the step it reports, and a session whose
+    events are not a whole number per call is taken again, up to
+    ``tries`` times; the count is returned beside the time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0)
-             for e in prof.key_averages())
-    if us > 0:
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "self_device_time_total", 0.0) > 0]
+        n = sum(e.count for e in events)
+        if n % iters == 0:
+            break
+    us = sum(e.self_device_time_total for e in events)
+    return us / iters / 1e3, n / iters
+
+
+def device_ms(fn, iters=20, capturable=True):
+    """(device time per call, device events per call) from
+    ``device_profile``. Where the profiler sees no device time, a
+    CUDA-graph replay of 50 calls for a capturable ``fn``, else None (not
+    measured), with no event count."""
+    ms, n = device_profile(fn, iters)
+    if ms > 0:
         DEVICE_TIME_SOURCE["profiler"] = True
-        return us / iters / 1e3
+        return ms, n
     DEVICE_TIME_SOURCE["graph"] = True
-    return graph_ms(fn) if capturable else None
+    return (graph_ms(fn) if capturable else None), None
 
 
 def timings(kernel, plain, library=None, plain_iters=50):
     """The kernel's, the plain version's and the library call's times:
     host-inclusive CUDA-event means (``ms``, ``plain_ms``, ``library_ms``)
-    and device times beside them (``device_ms``, ...). The plain versions
-    read ranges or thresholds from the host, so their device time comes
-    from the profiler only."""
-    out = {"ms": time_ms(kernel), "device_ms": device_ms(kernel),
-           "plain_ms": time_ms(plain, iters=plain_iters),
-           "plain_device_ms": device_ms(plain, iters=min(20, plain_iters),
-                                        capturable=False),
+    and device times beside them (``device_ms``, ...), each with the
+    profiler's device events per call. The plain versions read ranges or
+    thresholds from the host, so their device time comes from the
+    profiler only."""
+    out = {"ms": time_ms(kernel), "plain_ms": time_ms(plain,
+                                                      iters=plain_iters),
            "library_ms": None, "library_device_ms": None}
+    out["device_ms"], out["device_events_per_call"] = device_ms(kernel)
+    out["plain_device_ms"], out["plain_device_events_per_call"] = device_ms(
+        plain, iters=min(20, plain_iters), capturable=False)
     if library is not None:
-        out.update(library_ms=time_ms(library),
-                   library_device_ms=device_ms(library))
+        out["library_ms"] = time_ms(library)
+        out["library_device_ms"], out["library_device_events_per_call"] = \
+            device_ms(library)
     return out
 
 
@@ -471,6 +509,27 @@ def check_dequant_topk(ops, ref, dev):
     q = torch.tensor([[3, 7, 7, 1, 7]], dtype=torch.uint8, device=dev)
     _, i = _dequant_pair(ops, ref, q, torch.ones(1, device=dev), 5, sg)
     check(i.tolist() == [[1, 2, 4, 0, 3]], f"dequant_topk ties: {i}")
+    # distinct q with equal values rank by column: a scale whose product
+    # with 1/255 underflows to 0 (every q; int8's -0.0 with +0.0), top
+    # levels overflowing to inf at a global scale of 1, a subnormal scale
+    # (exact, not flushed) and a negative one; held bitwise against the
+    # plain version on the CPU (the card's sort orders -0.0 below +0.0)
+    for dtype in (np.uint8, np.int8):
+        lo = 0 if dtype == np.uint8 else -127
+        q = r.integers(lo, 128, (6, 1000)).astype(dtype)
+        q[:, :6] = np.array([0, 5, 0, 127, 5, 1], dtype)
+        for g, scales in ((sg, [1e-44, 0.5, 7e-45, 2.0, 1.0, 3e38]),
+                          (np.float32(1.0), [3e36, 1e-44, -0.25, 1e-40,
+                                             0.0, 1.0])):
+            qt = torch.from_numpy(q)
+            st = torch.tensor(scales, dtype=torch.float32)
+            v, i = ops.dequant_topk(qt.to(dev), st.to(dev), 1000,
+                                    global_scale=g)
+            vr, ir = ref.dequant_topk_ref(qt, st, 1000, g)
+            check(torch.equal(i.cpu(), ir) and torch.equal(
+                v.cpu().view(torch.int32), vr.view(torch.int32)),
+                f"dequant_topk colliding values differ ({dtype.__name__}, "
+                f"global scale {g})")
     # M = 0: empty outputs, no launch
     n0 = ops.LAUNCHES["dequant_topk"]
     v, i = ops.dequant_topk(torch.zeros(0, 1000, dtype=torch.uint8,
@@ -633,6 +692,96 @@ def check_motion_gate(ops, ref, dev, frames):
     return cases, path, big
 
 
+def _gate_frames_pair(ops, ref, fr, bg, alpha, thr, tile):
+    """The window kernel (one launch) and its plain version on the same
+    card-resident inputs: new_bg, tiles and hot must be bitwise equal."""
+    import torch
+    n0 = ops.LAUNCHES["motion_gate"]
+    got = ops.motion_gate_frames(fr, bg, alpha, thr, tile=tile)
+    check(ops.LAUNCHES["motion_gate"] == n0 + 1,
+          "motion_gate_frames must launch once per call")
+    want = ref.motion_gate_frames_ref(fr, bg, alpha, thr, tile)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("new_bg", "tiles", "hot"), got, want):
+        check(a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b),
+              f"motion_gate_frames {name} differs from the plain version at "
+              f"{tuple(fr.shape)}, tile {tile}, alpha {alpha}, thr {thr}")
+    return got
+
+
+def check_motion_gate_frames(ops, ref, dev, frames, window, window_720p):
+    """``motion_gate_frames`` against its plain version, bitwise, one launch
+    per call: a window of the stream's frames as background subtraction
+    gates it (128 x 128, tile 8, ``window`` frames after the seed frame),
+    a 720p window, ragged shapes (remainder rows and columns, groups of 1
+    to 128 threads per tile, tiles too large for registers, frames smaller
+    than a tile), a window of one, static frames (cold), a tile mean
+    exactly at the threshold (cold) and just above it (hot), alpha 0 and
+    alpha 1. Returns the path's window and a 720p window for timing."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(5)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+    seed_bg = t(frames[0])
+    path = (t(np.stack(frames[1:window + 1])), seed_bg)
+    _, _, hot = _gate_frames_pair(ops, ref, *path, 0.05, 0.08, 8)
+    cases = {"path_window": [int(path[0].shape[0]), int(hot.sum())]}
+    for N, H, W, tile in ((window_720p, 720, 1280, 8), (9, 70, 51, 8),
+                          (17, 33, 95, 8), (3, 16, 24, 4), (11, 130, 70, 3),
+                          (4, 128, 128, 16), (5, 64, 64, 1),
+                          (3, 90, 100, 30), (4, 4, 20, 8)):
+        fr = r.random((N, H, W, 3), dtype=np.float32)
+        bg = fr[0] + r.normal(0, 0.1, (H, W, 3))
+        _, tiles, hot = _gate_frames_pair(ops, ref, t(fr), t(bg), 0.05, 0.08,
+                                          tile)
+        check(tuple(tiles.shape) == (N, H // tile, W // tile), "tile grid")
+        cases[f"{N}x{H}x{W}_t{tile}_hot"] = int(hot.sum())
+        if H == 720:
+            big = (t(fr), t(bg))
+    _gate_frames_pair(ops, ref, path[0][:1], seed_bg, 0.05, 0.08, 8)
+    static = seed_bg[None].repeat(4, 1, 1, 1).contiguous()
+    _, tiles, hot = _gate_frames_pair(ops, ref, static, seed_bg, 0.5, 0.0, 8)
+    check(bool((tiles == 0).all()) and not hot.any(), "static frames are hot")
+    z = torch.zeros(3, 16, 16, 3, device=dev)
+    half = torch.full((16, 16, 3), 0.5, device=dev)
+    _, tiles, hot = _gate_frames_pair(ops, ref, z, half, 0.0, 0.5, 8)
+    check(bool((tiles == 0.5).all()) and not hot.any(),
+          "a window's tile mean exactly at the threshold must stay cold")
+    _, _, hot = _gate_frames_pair(ops, ref, z, half, 0.0, 0.4999, 8)
+    check(bool(hot.all()), "a window's tile mean above the threshold")
+    few = path[0][:16]
+    nb, _, _ = _gate_frames_pair(ops, ref, few, seed_bg, 0.0, 0.08, 8)
+    check(torch.equal(nb, seed_bg), "alpha = 0 must keep the background")
+    nb, _, _ = _gate_frames_pair(ops, ref, few, seed_bg, 1.0, 0.08, 8)
+    check(torch.equal(nb, few[-1]), "alpha = 1 must take the last frame")
+    return cases, path, big
+
+
+def gate_frames_entry(ops, ref, fr, bg, peaks, tile=8):
+    """``motion_gate_frames`` timed on one window; bound by bytes: the N
+    frames read once, bg read and new_bg written once, and N masks (fp32
+    tile means and bool hot flags). The plain version loops over the
+    frames, so it is timed over 2 calls."""
+    N, H, W = fr.shape[:3]
+    n_tiles = (H // tile) * (W // tile)
+    n_bytes = (N + 2) * H * W * 3 * 4 + N * n_tiles * 5
+    out = {
+        "shape": [N, H, W, 3], "tile": tile,
+        **timings(lambda: ops.motion_gate_frames(fr, bg, 0.05, 0.08,
+                                                 tile=tile),
+                  lambda: ref.motion_gate_frames_ref(fr, bg, 0.05, 0.08,
+                                                     tile),
+                  plain_iters=2),
+        "bound_ms": 1e3 * n_bytes / peaks["bytes"], "bound_by": "bytes",
+    }
+    for key in ("ms", "device_ms", "bound_ms"):
+        out[f"{key}_per_frame"] = out[key] / N
+    return out
+
+
 def gate_entry(ops, ref, f, bg, peaks, tile=8):
     """``motion_gate`` timed at one shape; bound by bytes: frame and bg
     read once, new_bg written once, plus the tile outputs."""
@@ -656,8 +805,17 @@ def kernel_phase(ops, ref, dev, crops, probs, peaks):
     pm_err, tracker, gate, _ = check_pixel_match(ops, ref, dev, crops)
     dq_err = check_dequant_topk(ops, ref, dev)
     tk_err = check_topk(ops, ref, dev, probs)
+    from repro_torch.data.bgsub import BackgroundSubtractor
+    it = iter(get_frames("jacksonh"))
+    stream_frames = [next(it)]
+    window = BackgroundSubtractor.WINDOW_BYTES // stream_frames[0].nbytes
+    stream_frames += [next(it) for _ in range(window)]
+    window_720p = BackgroundSubtractor.WINDOW_BYTES // (720 * 1280 * 3 * 4)
     gate_cases, gate_path, gate_big = check_motion_gate(
-        ops, ref, dev, list(get_frames("jacksonh", 2)))
+        ops, ref, dev, stream_frames[:2])
+    win_cases, win_path, win_720p = check_motion_gate_frames(
+        ops, ref, dev, stream_frames, window, window_720p)
+    del stream_frames
 
     def ca_entry(f, c):
         B, D = f.shape
@@ -736,8 +894,9 @@ def kernel_phase(ops, ref, dev, crops, probs, peaks):
                 "(a per-frame tracker's call)", **pm_entry(*tracker)}
     del window
     dq = {"name": "dequant_topk", "route": "cuda",
-          "design": "a block per row, dequantized in smem, rank by "
-                    "counting (C^2)",
+          "design": "a block per row, one stable counting pass over the "
+                    "8-bit key: equal-valued keys merged into groups, "
+                    "match_any ranks within warps, a scan over 256 groups",
           "source": "src/repro_torch/hopper/csrc/dequant_topk.cu",
           "replaces": "src/repro/kernels/dequant_topk.py:56",
           "max_abs_err": dq_err}
@@ -748,13 +907,23 @@ def kernel_phase(ops, ref, dev, crops, probs, peaks):
           "replaces": "src/repro/kernels/topk_mask.py:42",
           "max_abs_err": tk_err, **topk_entry(ops, ref, probs, peaks)}
     mg = {"name": "motion_gate", "route": "cuda",
-          "design": "one launch per frame: grid-stride EMA, a thread per "
-                    "tile, fp64 tile sums",
+          "design": "one launch per window of frames: a group of threads "
+                    "per tile, its values' background in registers across "
+                    "the window, 8 frames of loads in flight, fp64 tile "
+                    "sums by shuffle tree",
           "source": "src/repro_torch/hopper/csrc/motion_gate.cu",
           "replaces": "src/repro/kernels/frame_gate.py:51",
-          "max_abs_err": 0.0, **gate_entry(ops, ref, *gate_path, peaks)}
-    mg_720p = {"name": "motion_gate", "cases": gate_cases,
+          "max_abs_err": 0.0, "path_shape": "a window of background "
+          "subtraction's 120 s path", "cases": win_cases,
+          **gate_frames_entry(ops, ref, *win_path, peaks)}
+    mg_frame = {"name": "motion_gate", "cases": gate_cases,
+                "path_shape": "one frame (the per-frame call)",
+                **gate_entry(ops, ref, *gate_path, peaks)}
+    mg_720p = {"name": "motion_gate", "path_shape": "one 720p frame",
                **gate_entry(ops, ref, *gate_big, peaks)}
+    mg_720p_window = {"name": "motion_gate", "path_shape": "a 720p window",
+                      **gate_frames_entry(ops, ref, *win_720p, peaks)}
+    del win_path, win_720p
     fa = {"name": "flash_attention", "route": "cuda",
           "design": "bf16: mma.sync m16n8k16, p split hi/lo, cp.async x2, "
                     "64-row tiles; fp32: SIMT",
@@ -764,7 +933,9 @@ def kernel_phase(ops, ref, dev, crops, probs, peaks):
     extra = {"centroid_assign_default_serve_shape": ca_2048,
              "pixel_match_gate_shape": pm_gate,
              "pixel_match_frame_shape": pm_frame,
-             "motion_gate_720p": mg_720p}
+             "motion_gate_frame_shape": mg_frame,
+             "motion_gate_720p": mg_720p,
+             "motion_gate_720p_window": mg_720p_window}
     return ca, pm, dq, tk, mg, fa, extra
 
 
@@ -1010,12 +1181,19 @@ def default_report(report):
 
 def bgsub_path(ops, duration=120):
     """§6.1 background subtraction on the card over the stream's full
-    frames: one ``motion_gate`` launch per frame after the first, crops
-    of every box. Each stage is timed with the card synchronised around
-    it: upload, kernel, mask read (``_step`` less the kernel), components.
-    Returns the report, the boxes of every frame and the final
-    background."""
+    frames, in turns per-frame, windowed, windowed, per-frame, each with a
+    fresh ``BackgroundSubtractor(device="cuda")`` and its launch counters
+    zeroed just before it and read just after: per frame, one
+    ``motion_gate`` launch per frame after the first (``__call__``);
+    windowed, one ``motion_gate_frames`` launch per window (``process``).
+    Each stage is timed with the card synchronised around it: upload,
+    kernel, mask read (the step less the kernel), components, and the
+    rest of the wall (``other``: stacking a window, the Python around).
+    Boxes and background must be identical in all four turns; crops are
+    cut for every box. Returns the report, the boxes of every frame and
+    the final background."""
     import numpy as np
+    import torch
     from repro_torch.data import bgsub
     from repro_torch.data.video import get_stream
 
@@ -1024,45 +1202,71 @@ def bgsub_path(ops, duration=120):
     visible = np.zeros(n_frames, np.int64)
     for tr in vs._tracks:
         visible[tr.t0:min(tr.t1, n_frames)] += 1
-    bs = bgsub.BackgroundSubtractor(device="cuda")
-    spent = {"upload": 0.0, "kernel": 0.0, "step": 0.0, "components": 0.0,
-             "total": 0.0}
-    timed = stage_timer(spent, {})
-    kernel = ops.motion_gate
-    bs._upload = timed("upload", bs._upload)
-    bs._step = timed("step", bs._step)
-    bs._components = timed("components", bs._components)
-    boxes, n_crops = [], 0
-    ops.reset_launches()
-    ops.motion_gate = timed("kernel", kernel)
-    try:
-        for frame in vs.frames():
+    frames = list(vs.frames())
+    check(len(frames) == n_frames, "frame count")
+    window = bgsub.BackgroundSubtractor.WINDOW_BYTES // frames[0].nbytes
+    turns, first = [], None
+    for mode in ("per_frame", "windowed", "windowed", "per_frame"):
+        bs = bgsub.BackgroundSubtractor(device="cuda")
+        spent = {"upload": 0.0, "kernel": 0.0, "step": 0.0,
+                 "components": 0.0}
+        timed = stage_timer(spent, {})
+        name = "motion_gate" if mode == "per_frame" else "motion_gate_frames"
+        kernel = getattr(ops, name)
+        bs._upload = timed("upload", bs._upload)
+        bs._step = timed("step", bs._step)
+        bs._steps = timed("step", bs._steps)
+        bs._components = timed("components", bs._components)
+        ops.reset_launches()
+        setattr(ops, name, timed("kernel", kernel))
+        try:
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            b = bs(frame)
-            spent["total"] += time.perf_counter() - t0
-            crops = bgsub.extract_crops(frame, b, vs.cfg.obj_res)
-            check(crops.shape == (len(b), 32, 32, 3) and (
-                crops.dtype == np.float32), f"crops {crops.shape}")
-            n_crops += len(crops)
-            boxes.append(b)
-    finally:
-        ops.motion_gate = kernel
-    launches = dict(ops.LAUNCHES)
-    check(launches["motion_gate"] == n_frames - 1,
-          f"motion_gate launched {launches['motion_gate']} times for "
-          f"{n_frames} frames")
+            boxes = ([bs(f) for f in frames] if mode == "per_frame"
+                     else bs.process(frames))
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        finally:
+            setattr(ops, name, kernel)
+        launches = dict(ops.LAUNCHES)
+        bg = bs.background
+        if first is None:
+            first = (boxes, bg)
+        check(boxes == first[0], f"{mode} boxes differ from the first turn")
+        check(np.array_equal(bg, first[1]),
+              f"{mode} background differs from the first turn")
+        n = launches["motion_gate"]
+        if mode == "per_frame":
+            check(n == n_frames - 1, f"motion_gate launched {n} times for "
+                  f"{n_frames} frames, one per frame after the first")
+        else:
+            check(0 < n <= -(-(n_frames - 1) // window) + 1,
+                  f"motion_gate launched {n} times for {n_frames} frames "
+                  f"in windows of {window}")
+        ms = {k: 1e3 * v / (n_frames - 1) for k, v in spent.items()}
+        ms["mask_read"] = ms.pop("step") - ms["kernel"]
+        ms["total"] = 1e3 * total / (n_frames - 1)
+        ms["other"] = ms["total"] - sum(ms[k] for k in (
+            "upload", "kernel", "mask_read", "components"))
+        turns.append({"mode": mode, "launches": n, "ms_per_frame": ms})
+    boxes, bg = first
+    n_crops = 0
+    for frame, b in zip(frames, boxes):
+        crops = bgsub.extract_crops(frame, b, vs.cfg.obj_res)
+        check(crops.shape == (len(b), 32, 32, 3) and (
+            crops.dtype == np.float32), f"crops {crops.shape}")
+        n_crops += len(crops)
     with_box = np.array([len(b) > 0 for b in boxes])
-    ms = {k: 1e3 * v / (n_frames - 1) for k, v in spent.items()}
-    ms["mask_read"] = ms.pop("step") - ms["kernel"]
     return {
         "duration_s": duration, "frames": n_frames,
         "frame_shape": [vs.cfg.frame_res, vs.cfg.frame_res, 3],
-        "launches": launches, "boxes": int(sum(len(b) for b in boxes)),
-        "crops": n_crops, "frames_with_box": int(with_box.sum()),
+        "window_frames": int(window), "turns": turns,
+        "boxes_identical": True, "background_bitwise": True,
+        "boxes": int(sum(len(b) for b in boxes)), "crops": n_crops,
+        "frames_with_box": int(with_box.sum()),
         "frames_with_visible_track": int((visible > 0).sum()),
         "frames_with_both": int((with_box & (visible > 0)).sum()),
-        "ms_per_frame": ms,
-    }, boxes, bs.background
+    }, boxes, bg
 
 
 # ---------------------------------------------------------------------------
@@ -1819,6 +2023,83 @@ def breakdown(apply, cfg, class_kw, duration=120):
                 f"scan_{k}_rows": v for k, v in rows.items()}}
 
 
+# background subtraction over jacksonh's first argv[2] seconds in a process
+# of its own, from the ``src`` directory of the tree given first, through
+# whichever API the tree has: ``process`` (a window per launch) if present,
+# else one ``__call__`` per frame; a throwaway subtractor builds the
+# kernels and warms the path first
+COMPARE_BGSUB = r"""
+import hashlib, json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from repro_torch.data.bgsub import BackgroundSubtractor as BS
+from repro_torch.data.video import get_stream
+from repro_torch.hopper import ops
+frames = list(get_stream("jacksonh", duration_s=int(sys.argv[2]),
+                         fps=30).frames())
+api = "process" if hasattr(BS, "process") else "per_frame"
+
+
+def run(bs, fs):
+    return bs.process(fs) if api == "process" else [bs(f) for f in fs]
+
+
+run(BS(device="cuda"), frames[:3])
+bs = BS(device="cuda")
+ops.reset_launches()
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+boxes = run(bs, frames)
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+flat = json.dumps([[[int(v) for v in b] for b in fb] for fb in boxes])
+print(json.dumps({
+    "api": api, "frames": len(frames), "wall_s": wall,
+    "ms_per_frame": 1e3 * wall / (len(frames) - 1),
+    "launches": ops.LAUNCHES["motion_gate"],
+    "boxes_sha256": hashlib.sha256(flat.encode()).hexdigest(),
+    "background_sha256": hashlib.sha256(bs.background.tobytes()).hexdigest()}))
+"""
+
+# the kernels this tree and its parent both have, timed by one method in a
+# process of each tree's own (argv[1] its ``src``, argv[2] this script's
+# directory): ``dequant_topk`` on a seeded (56, 1000) uint8 shard at
+# k = 1000 and ``motion_gate`` on one frame at 128 x 128 and 720p, each
+# device time three times with its device events per call, and the host-
+# inclusive time; the window kernel where the tree has it
+COMPARE_KERNELS = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(1, sys.argv[2])
+import numpy as np
+import torch
+from chip_smoke import device_profile, time_ms
+from repro_torch.hopper import ops
+r = np.random.default_rng(0)
+dev = torch.device("cuda")
+q = torch.from_numpy(r.integers(0, 256, (56, 1000)).astype(np.uint8)).to(dev)
+s = torch.from_numpy((r.random(56) + 0.25).astype(np.float32)).to(dev)
+calls = {"dequant_topk_56x1000_k1000": lambda: ops.dequant_topk(
+    q, s, 1000, global_scale=np.float32(1 / 255))}
+for H, W in ((128, 128), (720, 1280)):
+    f = torch.from_numpy(r.random((H, W, 3), dtype=np.float32)).to(dev)
+    b = torch.from_numpy(r.random((H, W, 3), dtype=np.float32)).to(dev)
+    calls[f"motion_gate_{H}x{W}"] = (
+        lambda f=f, b=b: ops.motion_gate(f, b, 0.05, 0.08, tile=8))
+if hasattr(ops, "motion_gate_frames"):
+    fr = torch.from_numpy(r.random((341, 128, 128, 3),
+                                   dtype=np.float32)).to(dev)
+    calls["motion_gate_frames_341x128x128"] = (
+        lambda: ops.motion_gate_frames(fr, fr[0], 0.05, 0.08, tile=8))
+out = {}
+for name, fn in calls.items():
+    prof = [device_profile(fn) for _ in range(3)]
+    out[name] = {"device_ms": [p[0] for p in prof],
+                 "device_events_per_call": [p[1] for p in prof],
+                 "ms": time_ms(fn)}
+print(json.dumps(out))
+"""
+
 # one served path in a process of its own, from the ``src`` directory of
 # the tree given first; a fresh model cache, so every run trains alike
 COMPARE_CHILD = r"""
@@ -1868,14 +2149,32 @@ print(json.dumps({
 """
 
 
+def _turns(code, trees, argv):
+    """``code`` run by the parent tree and by this checkout in turns
+    parent, change, change, parent, each in a process of its own; each
+    run's last line of output, parsed."""
+    runs = []
+    for tree in ("parent", "change", "change", "parent"):
+        out = subprocess.run(
+            [sys.executable, "-c", code, trees[tree], *argv],
+            capture_output=True, text=True, timeout=600)
+        check(out.returncode == 0, f"{tree} failed:\n{out.stderr[-3000:]}")
+        runs.append({"tree": tree, **json.loads(
+            out.stdout.strip().splitlines()[-1])})
+    return runs
+
+
 def compare(parent_root, smi):
-    """The default serve (120 s) and the 600 s one-shot override path, each
-    run by the parent tree at ``parent_root`` and by this checkout in
-    turns parent, change, change, parent, each in a process of its own:
-    host wall, ingest rate, launches and the summed wall of two ingest
+    """The default serve (120 s), the 600 s one-shot override path and
+    background subtraction over 120 s, each run by the parent tree at
+    ``parent_root`` and by this checkout in turns parent, change, change,
+    parent, each in a process of its own: host wall, ingest rate or
+    ms/frame, launches and, for the serves, the summed wall of two ingest
     stages (the tracker's matcher and the unmatched scan, the card
-    synchronised around each call) side by side; the answers, the
-    clusters and the choice must be identical in all four runs."""
+    synchronised around each call) side by side. The answers, the
+    clusters and the choice, or the boxes and the background, must be
+    identical in all four runs. Last, the kernels both trees have, timed
+    by one method in each tree's process, in the same turns."""
     base = ["--stream", "jacksonh", "--fps", "30", "--tenants", "4",
             "--rounds", "3", "--device", "cuda"]
     paths = {"default_120s": base + ["--duration", "120"],
@@ -1888,16 +2187,7 @@ def compare(parent_root, smi):
         check(os.path.isdir(os.path.join(tree, "repro_torch")),
               f"no repro_torch under {tree}")
     for path, argv in paths.items():
-        runs = []
-        for tree in ("parent", "change", "change", "parent"):
-            out = subprocess.run(
-                [sys.executable, "-c", COMPARE_CHILD, trees[tree],
-                 json.dumps(argv)], capture_output=True, text=True,
-                timeout=600)
-            check(out.returncode == 0, f"{tree} {path} failed:\n"
-                  f"{out.stderr[-3000:]}")
-            runs.append({"tree": tree, **json.loads(
-                out.stdout.strip().splitlines()[-1])})
+        runs = _turns(COMPARE_CHILD, trees, [json.dumps(argv)])
         same = {(r["answers_sha256"], r["clusters"], json.dumps(r["choice"]))
                 for r in runs}
         check(len(same) == 1, f"{path}: parent and change answer "
@@ -1905,6 +2195,15 @@ def compare(parent_root, smi):
         emit({"phase": f"compare_{path}", "gpu": smi, "argv": argv,
               "runs": runs, "answers_identical": True,
               "elapsed_s": elapsed()})
+    runs = _turns(COMPARE_BGSUB, trees, ["120"])
+    same = {(r["boxes_sha256"], r["background_sha256"]) for r in runs}
+    check(len(same) == 1, f"bgsub_120s: parent and change differ: {same}")
+    emit({"phase": "compare_bgsub_120s", "gpu": smi, "runs": runs,
+          "boxes_identical": True, "background_identical": True,
+          "elapsed_s": elapsed()})
+    emit({"phase": "compare_kernels", "gpu": smi,
+          "runs": _turns(COMPARE_KERNELS, trees, [HERE]),
+          "elapsed_s": elapsed()})
 
 
 def main():
@@ -2016,7 +2315,8 @@ def main():
                                   max_clusters=2048)
     gate, gate_boxes, gate_bg = bgsub_path(ops)
     emit({"phase": "bgsub_path", "gpu": smi, **gate, "elapsed_s": elapsed()})
-    mg["launches"] = gate["launches"]["motion_gate"]
+    mg["launches"] = gate["turns"][1]["launches"]           # windowed
+    mg["launches_per_frame_path"] = gate["turns"][0]["launches"]
 
     # the override paths: seeded random weights rank the same classes first
     # for every crop, so the index ranks all 1000 classes (K=1000) and

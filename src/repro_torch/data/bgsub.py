@@ -14,10 +14,12 @@ background model stays on ``device`` between frames; each frame is
 uploaded once, the ``motion_gate`` Hopper kernel (its plain version on
 the CPU) updates the model and labels the hot tiles in one pass, and only
 the (H/t, W/t) hot mask comes back to the host for the components.
+``process`` does the same for a sequence of frames a window at a time:
+one upload, one launch and one mask read per window.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import Iterable, List, NamedTuple
 
 import numpy as np
 import torch
@@ -77,8 +79,13 @@ class BackgroundSubtractor:
     ``__call__(frame)`` runs one ``hopper.ops.motion_gate`` pass per frame
     after the first: the kernel on ``device="cuda"``, its plain version on
     ``device="cpu"``; both give the same boxes and the same background bit
-    for bit.
+    for bit. ``process(frames)`` gives what ``[self(f) for f in frames]``
+    gives, with one ``motion_gate_frames`` launch per window of frames.
     """
+
+    # frame bytes per window of ``process``: 341 frames of 128 x 128 x 3
+    # fp32, 6 of 720p
+    WINDOW_BYTES = 64 << 20
 
     def __init__(self, alpha: float = 0.05, threshold: float = 0.08,
                  tile: int = 8, min_tiles: int = 4,
@@ -106,21 +113,48 @@ class BackgroundSubtractor:
         if self._bg is None:
             self._bg = f.clone()
             return []
-        hot = self._step(f)
-        if hot.size == 0 or not hot.any():
-            return []
-        t = self.tile
-        return [b for b in self._components(hot)
-                if (b.y1 - b.y0) * (b.x1 - b.x0) >= self.min_tiles * t * t]
+        return self._boxes(self._step(f))
+
+    def process(self, frames: Iterable[np.ndarray]) -> List[List[MotionBox]]:
+        """frames: a sequence (or iterator) of (H, W, 3) float32 frames ->
+        one box list per frame, equal to ``[self(f) for f in frames]``,
+        the background included bit for bit.
+
+        After the first frame of a fresh subtractor (which seeds the
+        background, as in ``__call__``), the frames go in windows of
+        ``WINDOW_BYTES``: each window is stacked into one host buffer,
+        uploaded once, gated by one ``ops.motion_gate_frames`` launch, and
+        its hot masks come back in one copy; the components then run per
+        frame on the host. A frame of another shape than the background
+        raises ``ValueError``, as in ``__call__``."""
+        out: List[List[MotionBox]] = []
+        window: List[np.ndarray] = []
+        per = 1
+        for frame in frames:
+            if self._bg is None:
+                out.append(self(frame))
+                continue
+            if not window:
+                per = max(1, self.WINDOW_BYTES // max(1, frame.size * 4))
+            window.append(frame)
+            if len(window) == per:
+                out.extend(self._window(window))
+                window = []
+        if window:
+            out.extend(self._window(window))
+        return out
 
     @property
     def background(self) -> np.ndarray:
         """The background model as a host (H, W, 3) float32 array."""
         return self._bg.cpu().numpy()
 
-    def _upload(self, frame: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(
-            np.ascontiguousarray(frame, np.float32)).to(self.device)
+    def _upload(self, frames) -> torch.Tensor:
+        """One frame or a window (a numpy array, or a host tensor) to the
+        device in one copy."""
+        if not isinstance(frames, torch.Tensor):
+            frames = torch.from_numpy(np.ascontiguousarray(frames, np.float32))
+        return frames.to(self.device)
 
     def _step(self, f: torch.Tensor) -> np.ndarray:
         """One EMA + tile-diff pass; replaces ``self._bg`` and returns the
@@ -128,6 +162,34 @@ class BackgroundSubtractor:
         self._bg, _, hot = ops.motion_gate(f, self._bg, self.alpha,
                                            self.threshold, tile=self.tile)
         return hot.cpu().numpy()
+
+    def _steps(self, fw: torch.Tensor) -> np.ndarray:
+        """A window (n, H, W, 3) in one pass; replaces ``self._bg`` and
+        returns the (n, ty, tx) hot masks on the host in one copy."""
+        self._bg, _, hot = ops.motion_gate_frames(
+            fw, self._bg, self.alpha, self.threshold, tile=self.tile)
+        return hot.cpu().numpy()
+
+    def _window(self, window: List[np.ndarray]) -> List[List[MotionBox]]:
+        """One window: stacked into one host buffer (page-locked when the
+        background lives on the card, so the upload is one direct copy;
+        PyTorch's pinned-memory cache hands the same buffer to the next
+        window), gated in one launch, its masks read back in one copy."""
+        buf = torch.empty((len(window), *np.shape(window[0])),
+                          dtype=torch.float32,
+                          pin_memory=self.device.type == "cuda")
+        np.stack(window, out=buf.numpy())
+        hot = self._steps(self._upload(buf))
+        return [self._boxes(h) for h in hot]
+
+    def _boxes(self, hot: np.ndarray) -> List[MotionBox]:
+        """The boxes of one (ty, tx) hot mask with at least ``min_tiles``
+        tiles' area."""
+        if hot.size == 0 or not hot.any():
+            return []
+        t = self.tile
+        return [b for b in self._components(hot)
+                if (b.y1 - b.y0) * (b.x1 - b.x0) >= self.min_tiles * t * t]
 
     def _components(self, hot: np.ndarray) -> List[MotionBox]:
         """Connected components on the tile grid (4-neighbor).

@@ -39,7 +39,7 @@ _SIGNATURES = {
                             _int, _vp),
     "topk_launch": (_vp, _vp, _vp, _int, _int, _int, _vp),
     "motion_gate_launch": (_vp, _vp, _vp, _vp, _vp, _int, _int, _int,
-                           _float, _float, _vp),
+                           _int, _float, _float, _vp),
     "flash_attention_launch": (_vp, _vp, _vp, _vp, _int, _int, _int, _int,
                                _int, _int, _float, _vp),
 }

@@ -26,9 +26,9 @@ CENTROID_ROWS = 64
 # head widths the flash_attention kernel is built for (the JAX tests' set)
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
 
-# widest row the dequant_topk kernel ranks: its fp32 copy of one row lives
-# in 48 KB of shared memory (kRankMaxC in csrc/rank_topk.cuh)
-DEQUANT_MAX_C = 48 * 1024 // 4
+# widest row the dequant_topk kernel ranks: one key byte per column in
+# shared memory (kMaxC in csrc/dequant_topk.cu)
+DEQUANT_MAX_C = 12288
 # widest row the topk kernel sorts: 12288 columns pad to 16384 64-bit keys,
 # 128 KB of shared memory (kMaxC in csrc/topk.cu)
 TOPK_MAX_C = 12288
@@ -238,8 +238,8 @@ def dequant_topk(q: torch.Tensor, scales: torch.Tensor, k: int, *,
         raise ValueError("dequant_topk: the kernel takes contiguous rows")
     if C > DEQUANT_MAX_C:
         raise ValueError(f"dequant_topk: C={C} exceeds the kernel's "
-                         f"{DEQUANT_MAX_C} columns (one fp32 row in 48 KB "
-                         f"of shared memory)")
+                         f"{DEQUANT_MAX_C} columns (a row's key bytes in "
+                         f"shared memory)")
     sg = float(np.float32(global_scale))
     err = build.load().dequant_topk_launch(
         q.data_ptr(), int(q.dtype == torch.int8), scales.data_ptr(), sg,
@@ -287,6 +287,62 @@ def topk(x: torch.Tensor, k: int):
     return vals, idx
 
 
+def motion_gate_frames(frames: torch.Tensor, bg: torch.Tensor, alpha,
+                       threshold, *, tile: int = 8):
+    """frames (N, H, W, 3) f32, bg (H, W, 3) f32 -> (new_bg (H, W, 3) f32,
+    tiles (N, ty, tx) f32, hot (N, ty, tx) bool), ty = H // tile,
+    tx = W // tile.
+
+    N ``motion_gate`` steps in order, bit for bit, in one launch: frame
+    n's tile means are taken against the background after frame n - 1
+    (``bg`` for frame 0), and ``new_bg`` is the background after the last
+    frame. ``N == 0`` gives a copy of ``bg`` and empty grids without a
+    launch. ``alpha`` and ``threshold`` are taken as fp32 and passed by
+    value: no host sync, no rebuild per value. One launch per call,
+    counted under ``LAUNCHES["motion_gate"]``."""
+    if tile < 1:
+        raise ValueError(f"tile must be >= 1, got {tile}")
+    if frames.dim() != 4 or frames.shape[3] != 3 or \
+            frames.shape[1:] != bg.shape:
+        raise ValueError(f"frames must be (N, H, W, 3) and bg (H, W, 3) of "
+                         f"one H and W, got {tuple(frames.shape)} and "
+                         f"{tuple(bg.shape)}")
+    if frames.device != bg.device:
+        raise ValueError(f"frames/bg lie on {frames.device} and "
+                         f"{bg.device}")
+    if frames.device.type == "cpu":
+        return ref.motion_gate_frames_ref(frames, bg, alpha, threshold, tile)
+    if frames.device.type != "cuda":
+        raise ValueError(f"unsupported device {frames.device}")
+    N, H, W = frames.shape[:3]
+    ty, tx = H // tile, W // tile
+    dev = frames.device
+    tiles = torch.empty((N, ty, tx), dtype=torch.float32, device=dev)
+    hot = torch.empty((N, ty, tx), dtype=torch.bool, device=dev)
+    if N == 0:
+        return bg.clone(), tiles, hot
+    for t in (frames, bg):
+        if t.dtype != torch.float32:
+            raise ValueError(f"motion_gate: the kernel takes float32, got "
+                             f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("motion_gate: the kernel takes contiguous "
+                             "frames")
+    if H == 0 or W == 0:
+        raise ValueError(f"motion_gate: empty frame {tuple(bg.shape)}")
+    if H * W * 3 >= 2 ** 31:
+        raise ValueError(f"motion_gate: a frame of {H * W * 3} values "
+                         f"exceeds the kernel's 32-bit offsets")
+    new_bg = torch.empty_like(bg)
+    err = build.load().motion_gate_launch(
+        frames.data_ptr(), bg.data_ptr(), new_bg.data_ptr(),
+        tiles.data_ptr(), hot.data_ptr(), N, H, W, tile,
+        float(np.float32(alpha)), float(np.float32(threshold)), _stream(dev))
+    _raise_on(err, "motion_gate")
+    LAUNCHES["motion_gate"] += 1
+    return new_bg, tiles, hot
+
+
 def motion_gate(frame: torch.Tensor, bg: torch.Tensor, alpha, threshold, *,
                 tile: int = 8):
     """frame/bg (H, W, 3) f32 -> (new_bg (H, W, 3) f32, tiles (ty, tx) f32,
@@ -297,42 +353,14 @@ def motion_gate(frame: torch.Tensor, bg: torch.Tensor, alpha, threshold, *,
     and columns included; the mean of ``|frame - bg|`` over each complete
     (tile, tile) tile and its 3 channels; and the strict
     ``tiles > threshold`` hot mask. A frame smaller than one tile still
-    launches (the EMA only) and gives an empty tile grid. ``alpha`` and
-    ``threshold`` are taken as fp32 and passed by value: no host sync,
-    no rebuild per value."""
-    if tile < 1:
-        raise ValueError(f"tile must be >= 1, got {tile}")
+    launches (the EMA only) and gives an empty tile grid. The N = 1 case
+    of ``motion_gate_frames``: one launch."""
     if frame.dim() != 3 or frame.shape[2] != 3 or frame.shape != bg.shape:
         raise ValueError(f"frame and bg must both be (H, W, 3), got "
                          f"{tuple(frame.shape)} and {tuple(bg.shape)}")
-    if frame.device != bg.device:
-        raise ValueError(f"frame/bg lie on {frame.device} and {bg.device}")
-    if frame.device.type == "cpu":
-        return ref.motion_gate_ref(frame, bg, alpha, threshold, tile)
-    if frame.device.type != "cuda":
-        raise ValueError(f"unsupported device {frame.device}")
-    for t in (frame, bg):
-        if t.dtype != torch.float32:
-            raise ValueError(f"motion_gate: the kernel takes float32, got "
-                             f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("motion_gate: the kernel takes contiguous "
-                             "frames")
-    H, W = frame.shape[:2]
-    if H == 0 or W == 0:
-        raise ValueError(f"motion_gate: empty frame {tuple(frame.shape)}")
-    ty, tx = H // tile, W // tile
-    dev = frame.device
-    new_bg = torch.empty_like(frame)
-    tiles = torch.empty((ty, tx), dtype=torch.float32, device=dev)
-    hot = torch.empty((ty, tx), dtype=torch.bool, device=dev)
-    err = build.load().motion_gate_launch(
-        frame.data_ptr(), bg.data_ptr(), new_bg.data_ptr(), tiles.data_ptr(),
-        hot.data_ptr(), H, W, tile, float(np.float32(alpha)),
-        float(np.float32(threshold)), _stream(dev))
-    _raise_on(err, "motion_gate")
-    LAUNCHES["motion_gate"] += 1
-    return new_bg, tiles, hot
+    new_bg, tiles, hot = motion_gate_frames(frame[None], bg, alpha,
+                                            threshold, tile=tile)
+    return new_bg, tiles[0], hot[0]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -21,12 +21,13 @@ order:
 * ``dequant_topk_ref`` dequantizes as ``q * (sg * scale_row)``, each
   product one fp32 multiply in that order (the TPU kernel's and the eager
   v4 loader's op order), and ranks with a stable descending sort, so ties
-  go to the lowest column as in the CUDA kernel's rank count;
+  go to the lowest column as in the CUDA kernel's stable counting pass;
 * ``topk_ref`` ranks the rows with the same stable descending sort;
 * ``motion_gate_ref`` rounds each product and the sum of the EMA
   separately, as the CUDA kernel does, and sums each tile's ``|f - bg|``
   in fp64 before rounding its mean to fp32 once (see
-  ``csrc/motion_gate.cu``);
+  ``csrc/motion_gate.cu``); ``motion_gate_frames_ref`` is its loop over a
+  window of frames;
 * ``flash_attention_ref`` is dense softmax attention in fp32 (the JAX
   package's ``flash_attention_ref``); the kernel's online softmax sums in
   another order, so the two agree to a tolerance, not bitwise.
@@ -162,6 +163,27 @@ def motion_gate_ref(frame: torch.Tensor, bg: torch.Tensor, alpha, threshold,
     tiles = (s / (3 * tile * tile)).float()
     thr = torch.as_tensor(threshold, dtype=torch.float32, device=f.device)
     return new_bg, tiles, tiles > thr
+
+
+def motion_gate_frames_ref(frames: torch.Tensor, bg: torch.Tensor, alpha,
+                           threshold, tile: int):
+    """frames (N, H, W, 3), bg (H, W, 3) f32 -> (new_bg (H, W, 3) f32,
+    tiles (N, ty, tx) f32, hot (N, ty, tx) bool): ``motion_gate_ref`` over
+    the frames in order, each against the background the previous one
+    left; ``new_bg`` is the background after the last frame."""
+    H, W = bg.shape[:2]
+    b = bg.float()
+    tiles, hot = [], []
+    for f in frames:
+        b, t, h = motion_gate_ref(f, b, alpha, threshold, tile)
+        tiles.append(t)
+        hot.append(h)
+    if not tiles:
+        empty = (0, H // tile, W // tile)
+        return (b.clone(),
+                torch.empty(empty, dtype=torch.float32, device=b.device),
+                torch.empty(empty, dtype=torch.bool, device=b.device))
+    return b, torch.stack(tiles), torch.stack(hot)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

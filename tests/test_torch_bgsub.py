@@ -8,8 +8,12 @@ JAX package's own reference: the EMA background to atol 1e-6 and the tile
 means to atol 1e-6 (the JAX package rounds the channel mean to fp32 before
 the tile mean; the port sums each tile in fp64 and rounds once), with the
 hot masks equal and every threshold kept more than 1e-5 away from the
-tile values. ``BackgroundSubtractor(device="cpu")`` must give the JAX
-package's boxes and crops on every frame.
+tile values. ``motion_gate_frames_ref`` (the plain version of the port's
+one-launch window) is held to N sequential steps of the Pallas kernel at
+the same tolerances. ``BackgroundSubtractor(device="cpu")`` must give the
+JAX package's boxes and crops on every frame, per frame and through
+``process``, and ``process`` must equal the per-frame calls bit for bit
+however the frames are cut into windows.
 """
 import numpy as np
 import pytest
@@ -173,3 +177,139 @@ def test_bgsub_on_cuda_without_a_card_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BackgroundSubtractor()
+
+
+def _moving_frames(H, W, n, seed):
+    """n frames: a noisy static scene with a bright square moving across
+    it, so each frame has hot and cold tiles."""
+    r = np.random.default_rng(seed)
+    base = r.random((H, W, 3), dtype=np.float32)
+    out = []
+    for i in range(n):
+        f = np.clip(base + r.normal(0, 0.02, base.shape), 0, 1
+                    ).astype(np.float32)
+        y, x = (3 * i) % max(1, H - 8), (5 * i) % max(1, W - 8)
+        f[y:y + 12, x:x + 12] = 1.0
+        out.append(f)
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("H,W,tile", [(64, 64, 8), (70, 51, 8), (33, 95, 8),
+                                      (16, 24, 4), (4, 20, 8)])
+@pytest.mark.parametrize("alpha,thr", [(0.05, 0.08), (0.3, 0.2)])
+def test_motion_gate_frames_ref_matches_jax_steps(H, W, tile, alpha, thr):
+    """The window's plain version (and the CPU wrapper) against N steps of
+    the Pallas kernel, each from the background the last one left: the
+    background to atol 1e-6 after every step, tile means to atol 1e-6,
+    hot masks equal, the threshold kept 1e-5 off every tile mean."""
+    fr = _moving_frames(H, W, 6, H * W + tile)
+    bg = fr[0] + np.float32(0.03)
+    t0 = ref.motion_gate_frames_ref(_t(fr), _t(bg), alpha, 0.0, tile)[1]
+    thr = _off_tiles(t0.numpy(), thr)
+    nb, t, h = ops.motion_gate_frames(_t(fr), _t(bg), alpha, thr, tile=tile)
+    assert t.shape == h.shape == (6, H // tile, W // tile)
+    assert h.dtype == torch.bool and t.dtype == torch.float32
+    if h.numel():
+        assert 0 < int(h.sum()) < h.numel()
+    jbg = bg
+    for n in range(6):
+        jbg, jt, jh = (np.asarray(x) for x in jops.motion_gate(
+            fr[n], jbg, alpha, thr, tile=tile))
+        np.testing.assert_allclose(t[n].numpy(), jt, atol=1e-6, rtol=0)
+        np.testing.assert_array_equal(h[n].numpy(), jh)
+    np.testing.assert_allclose(nb.numpy(), jbg, atol=1e-6, rtol=0)
+    # the window is its steps, bit for bit
+    b = _t(bg)
+    for n in range(6):
+        b, tn, hn = ref.motion_gate_ref(_t(fr[n]), b, alpha, thr, tile)
+        assert torch.equal(tn, t[n]) and torch.equal(hn, h[n])
+    assert torch.equal(b, nb)
+
+
+def test_motion_gate_frames_edges():
+    bg = np.random.default_rng(1).random((16, 16, 3), dtype=np.float32)
+    before = dict(ops.LAUNCHES)
+    nb, t, h = ops.motion_gate_frames(torch.zeros(0, 16, 16, 3), _t(bg),
+                                      0.05, 0.08)
+    assert ops.LAUNCHES == before
+    assert torch.equal(nb, _t(bg)) and t.shape == h.shape == (0, 2, 2)
+    # static frames stay cold (alpha 0.5 keeps a static background exact);
+    # a mean exactly at the threshold is cold
+    fr = np.stack([bg] * 3)
+    _, t, h = ops.motion_gate_frames(_t(fr), _t(bg), 0.5, 0.0)
+    assert (t.numpy() == 0).all() and not h.any()
+    z = np.zeros((3, 16, 16, 3), np.float32)
+    half = np.full((16, 16, 3), 0.5, np.float32)
+    _, t, h = ops.motion_gate_frames(_t(z), _t(half), 0.0, 0.5)
+    assert (t.numpy() == 0.5).all() and not h.any()
+    # alpha = 0 keeps the background, alpha = 1 takes the last frame
+    fr = _moving_frames(16, 16, 3, 2)
+    assert torch.equal(ops.motion_gate_frames(_t(fr), _t(bg), 0.0, 0.1)[0],
+                       _t(bg))
+    assert torch.equal(ops.motion_gate_frames(_t(fr), _t(bg), 1.0, 0.1)[0],
+                       _t(fr[-1]))
+
+
+@pytest.mark.parametrize("frames,bg,tile", [
+    (torch.zeros(2, 8, 8, 3), torch.zeros(8, 8, 3), 0),    # tile < 1
+    (torch.zeros(8, 8, 3), torch.zeros(8, 8, 3), 4),       # not (N, H, W, 3)
+    (torch.zeros(2, 8, 8, 4), torch.zeros(8, 8, 4), 4),
+    (torch.zeros(2, 8, 8, 3), torch.zeros(8, 9, 3), 4),    # shapes differ
+])
+def test_motion_gate_frames_rejects_bad_inputs(frames, bg, tile):
+    with pytest.raises(ValueError):
+        ops.motion_gate_frames(frames, bg, 0.05, 0.08, tile=tile)
+
+
+@pytest.mark.parametrize("backend", ["numpy", "kernel"])
+def test_process_matches_jax_on_jacksonh(backend):
+    """jacksonh's first 300 frames through ``process`` in windows of 64
+    frames: the JAX package's per-frame boxes on every frame."""
+    frames = list(get_stream("jacksonh", duration_s=10, fps=30).frames())
+    port = BackgroundSubtractor(device="cpu")
+    port.WINDOW_BYTES = 64 * frames[0].nbytes
+    got = port.process(frames)
+    jax_bs = JBackgroundSubtractor(backend=backend)
+    want = [jax_bs(f) for f in frames]
+    assert got == want
+    assert sum(len(b) for b in got) > 0
+    if backend == "numpy":
+        np.testing.assert_array_equal(port.background, jax_bs._bg)
+
+
+@pytest.mark.parametrize("window", [1, 7, 64, "mixed"])
+def test_process_is_split_invariant(window):
+    """``process`` in windows of 1, 7 and 64 frames, and mixed with
+    per-frame calls, equals ``[bs(f) for f in frames]``: the same boxes on
+    every frame and the same background bit for bit."""
+    frames = list(get_stream("jacksonh", duration_s=5, fps=30).frames())
+    ref_bs = BackgroundSubtractor(device="cpu")
+    want = [ref_bs(f) for f in frames]
+    bs = BackgroundSubtractor(device="cpu")
+    if window == "mixed":
+        bs.WINDOW_BYTES = 5 * frames[0].nbytes
+        got = [bs(f) for f in frames[:10]] + bs.process(frames[10:40])
+        got += [bs(f) for f in frames[40:47]] + bs.process(iter(frames[47:]))
+    else:
+        bs.WINDOW_BYTES = window * frames[0].nbytes
+        got = bs.process(frames)
+    assert got == want
+    assert sum(len(b) for b in want) > 0
+    np.testing.assert_array_equal(bs.background, ref_bs.background)
+
+
+def test_process_edges():
+    r = np.random.default_rng(3)
+    bs = BackgroundSubtractor(device="cpu")
+    assert bs.process([]) == [] and bs._bg is None
+    f = r.random((40, 40, 3), dtype=np.float32)
+    assert bs.process([f]) == [[]]                    # the first frame seeds
+    np.testing.assert_array_equal(bs.background, f)
+    # frames smaller than one tile: [] per frame, the background tracks
+    small = r.random((3, 4, 40, 3), dtype=np.float32)
+    bs, per = (BackgroundSubtractor(tile=8, device="cpu") for _ in range(2))
+    assert bs.process(small) == [[], [], []] == [per(x) for x in small]
+    np.testing.assert_array_equal(bs.background, per.background)
+    # a frame of another shape than the background raises
+    with pytest.raises(ValueError):
+        BackgroundSubtractor(device="cpu").process([f, f[:32]])

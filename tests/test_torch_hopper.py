@@ -291,6 +291,8 @@ def test_cpu_tensors_take_the_plain_version():
     ops.dequant_topk(torch.ones(4, 8, dtype=torch.uint8), torch.ones(4), 3)
     ops.topk(torch.ones(4, 8), 3)
     ops.motion_gate(torch.ones(8, 8, 3), torch.zeros(8, 8, 3), 0.05, 0.08)
+    ops.motion_gate_frames(torch.ones(3, 8, 8, 3), torch.zeros(8, 8, 3),
+                           0.05, 0.08)
     ops.flash_attention(torch.ones(1, 4, 2, 16), torch.ones(1, 4, 2, 16),
                         torch.ones(1, 4, 2, 16))
     assert ops.LAUNCHES == {"centroid_assign": 0, "pixel_match": 0,
@@ -351,6 +353,43 @@ def test_dequant_topk_ties_go_to_the_lowest_column():
     scales = np.array([0.5, 1.0], np.float32)
     _, idx = _assert_dequant_eq(q, scales, 5)
     assert idx.tolist() == [[1, 2, 4, 0, 3], [0, 1, 2, 3, 4]]
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int8])
+def test_dequant_topk_colliding_scales_match_jax(dtype):
+    """Rows whose distinct q give equal values, which the reference ranks
+    by column: a subnormal stored scale whose product with the format's
+    1/255 underflows to 0 (every q collides; int8's negative q give -0.0,
+    equal to +0.0), held exactly against the Pallas kernel and a stable
+    argsort; and, at a global scale of 1, a scale so large that the top
+    levels overflow to +-inf, held against the stable argsort (the Pallas
+    kernel's -3e38 mask sorts above -inf, so it is no oracle there).
+    XLA's CPU flushes subnormal products to zero, so a scale that stays
+    subnormal is not compared with it."""
+    r = np.random.default_rng(9)
+    lo = 0 if dtype == np.uint8 else -127
+    q = r.integers(lo, 128, (4, 41)).astype(dtype)
+    q[:, :6] = np.array([0, 5, 0, 127, 5, 1], dtype)      # planted ties
+    scales = np.array([1e-44, 0.5, 7e-45, 2.0], np.float32)
+    assert (SG * scales)[[0, 2]].tolist() == [0.0, 0.0]
+    vals, idx = _assert_dequant_eq(q, scales, 41)
+    x = q.astype(np.float32) * (SG * scales)[:, None]
+    order = np.argsort(-x, axis=1, kind="stable")
+    np.testing.assert_array_equal(idx, order)
+    np.testing.assert_array_equal(idx[[0, 2]], np.arange(41)[None].repeat(
+        2, 0))                                    # every q tied: by column
+    np.testing.assert_array_equal(
+        vals.view(np.uint32), np.take_along_axis(x, order, 1).view(np.uint32))
+    big = np.array([3e36, 1.0, 3e36, 1e-30], np.float32)
+    with np.errstate(over="ignore"):
+        x = q.astype(np.float32) * big[:, None]
+    assert np.isinf(x[0]).sum() > 1
+    vals, idx = ops.dequant_topk(torch.from_numpy(q), torch.from_numpy(big),
+                                 41, global_scale=1.0)
+    order = np.argsort(-x, axis=1, kind="stable")
+    np.testing.assert_array_equal(idx.numpy(), order)
+    np.testing.assert_array_equal(vals.numpy(),
+                                  np.take_along_axis(x, order, 1))
 
 
 def test_dequant_topk_empty_rows():

@@ -11,8 +11,9 @@ summed in another order; atol 1e-4 where a distance cancels to ~0) and
 mean pixel differences to rtol 1e-6. ``dequant_topk``'s and ``topk``'s
 values and indices must be exact, and so must the saved bytes of the
 fused pipeline against the staged path on the card, and ``motion_gate``'s
-new background, tile means and hot mask (bitwise: the EMA is rounded
-step by step and the tile sums are exact in fp64). ``flash_attention``
+and ``motion_gate_frames``' new background, tile means and hot masks
+(bitwise: the EMA is rounded step by step and the tile sums are exact in
+fp64). ``flash_attention``
 agrees with its plain version to atol = rtol = 2e-5 in fp32 (the JAX
 package's own tolerance: the online softmax sums in another order) and to
 one bf16 ulp in bf16, rtol 2**-7 with atol 1e-4 (both round one fp32
@@ -248,6 +249,34 @@ def test_dequant_topk_kernel_matches_plain(cuda, dtype, M, C, k, hi):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.uint8, np.int8])
+def test_dequant_topk_kernel_colliding_values(cuda, dtype):
+    """Distinct q with equal values rank by column, as in the plain
+    version: a scale that underflows to 0 (every q, -0.0 with +0.0), one
+    whose top levels overflow to inf, a subnormal scale (exact distinct
+    products, not flushed), and a negative scale (values fall with q).
+    The plain version runs on the CPU: the card's sort orders -0.0 below
+    +0.0 by their bits, and the contract ties them."""
+    r = np.random.default_rng(12)
+    lo = 0 if dtype == np.uint8 else -127
+    q = r.integers(lo, 128, (6, 1000)).astype(dtype)
+    q[:, :6] = np.array([0, 5, 0, 127, 5, 1], dtype)
+    for sg, scales in ((np.float32(1 / 255), [1e-44, 0.5, 7e-45, 2.0, 1.0,
+                                              3e38]),
+                       (np.float32(1.0), [3e36, 1e-44, -0.25, 1e-40, 0.0,
+                                          1.0])):
+        qt = torch.from_numpy(q).to(cuda)
+        st = torch.tensor(scales, dtype=torch.float32, device=cuda)
+        for k in (1000, 7):
+            v, i = ops.dequant_topk(qt, st, k, global_scale=sg)
+            vr, ir = ref.dequant_topk_ref(qt.cpu(), st.cpu(), k, sg)
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(i.cpu().numpy(), ir.numpy())
+            np.testing.assert_array_equal(v.cpu().numpy().view(np.uint32),
+                                          vr.numpy().view(np.uint32))
+
+
+@pytest.mark.cuda
 def test_dequant_topk_kernel_empty_and_errors(cuda):
     before = ops.LAUNCHES["dequant_topk"]
     v, i = ops.dequant_topk(torch.zeros(0, 10, dtype=torch.uint8,
@@ -427,6 +456,95 @@ def test_background_subtractor_on_the_card_equals_the_cpu(cuda):
         n_boxes += len(boxes)
     assert ops.LAUNCHES["motion_gate"] - before == 299
     assert n_boxes > 0
+    assert (card.background == cpu.background).all()
+
+
+def _gate_frames_pair(fr, bg, alpha, thr, tile):
+    """The window kernel (one launch) and its plain version on the same
+    card-resident inputs: new_bg, tiles and hot must be bitwise equal."""
+    before = ops.LAUNCHES["motion_gate"]
+    got = ops.motion_gate_frames(fr, bg, alpha, thr, tile=tile)
+    assert ops.LAUNCHES["motion_gate"] == before + 1
+    want = ref.motion_gate_frames_ref(fr, bg, alpha, thr, tile)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    return [x.cpu().numpy() for x in got]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,tile", [
+    (300, 128, 128, 8),                  # a window of the stream's frames
+    (5, 720, 1280, 8),                   # a 720p window
+    (1, 128, 128, 8),                    # a window of one
+    (9, 70, 51, 8), (17, 33, 95, 8),     # ragged: remainder rows/columns
+    (3, 16, 24, 4), (11, 130, 70, 3),    # other groups per tile
+    (4, 128, 128, 16), (5, 64, 64, 1),
+    (3, 90, 100, 30),                    # tiles too large for registers
+    (4, 4, 20, 8),                       # smaller than one tile: EMA only
+])
+def test_motion_gate_frames_kernel_matches_plain(cuda, N, H, W, tile):
+    r = np.random.default_rng(N + H + W + tile)
+    fr = r.random((N, H, W, 3), dtype=np.float32)
+    bg = fr[0] + r.normal(0, 0.1, (H, W, 3)).astype(np.float32)
+    nb, t, h = _gate_frames_pair(_t(fr, cuda), _t(bg, cuda), 0.05, 0.08,
+                                 tile)
+    assert t.shape == h.shape == (N, H // tile, W // tile)
+    if t.size:
+        assert 0 < h.sum() < h.size
+
+
+@pytest.mark.cuda
+def test_motion_gate_frames_kernel_edges(cuda):
+    r = np.random.default_rng(8)
+    bg = _t(r.random((64, 64, 3), dtype=np.float32), cuda)
+    fr = _t(r.random((6, 64, 64, 3), dtype=np.float32), cuda)
+    static = bg[None].repeat(4, 1, 1, 1).contiguous()
+    _, t, h = _gate_frames_pair(static, bg, 0.5, 0.0, 8)   # static: cold
+    assert (t == 0).all() and not h.any()
+    z = torch.zeros(3, 16, 16, 3, device=cuda)
+    half = torch.full((16, 16, 3), 0.5, device=cuda)
+    _, t, h = _gate_frames_pair(z, half, 0.0, 0.5, 8)       # strict >
+    assert (t == 0.5).all() and not h.any()
+    _, _, h = _gate_frames_pair(z, half, 0.0, 0.4999, 8)
+    assert h.all()
+    nb, _, _ = _gate_frames_pair(fr, bg, 0.0, 0.1, 8)       # alpha = 0
+    assert (nb == bg.cpu().numpy()).all()
+    nb, _, _ = _gate_frames_pair(fr, bg, 1.0, 0.1, 8)       # alpha = 1
+    assert (nb == fr[-1].cpu().numpy()).all()
+    before = ops.LAUNCHES["motion_gate"]
+    nb, t, h = ops.motion_gate_frames(fr[:0], bg, 0.05, 0.08)
+    assert ops.LAUNCHES["motion_gate"] == before
+    assert torch.equal(nb, bg) and t.shape == h.shape == (0, 8, 8)
+    with pytest.raises(ValueError):
+        ops.motion_gate_frames(fr.double(), bg.double(), 0.05, 0.08)
+    with pytest.raises(ValueError):
+        ops.motion_gate_frames(fr.transpose(1, 2), bg, 0.05, 0.08)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 7])
+def test_background_subtractor_process_on_the_card_equals_the_cpu(cuda,
+                                                                   window):
+    """jacksonh's first 300 frames through ``process`` on the card (one
+    ``motion_gate`` launch per window after the first frame, in one
+    64 MB window or in windows of 7) against per-frame calls on the CPU:
+    the same boxes on every frame and the same background bit for bit."""
+    from repro_torch.data.bgsub import BackgroundSubtractor
+    from repro_torch.data.video import get_stream
+
+    frames = list(get_stream("jacksonh", duration_s=10, fps=30).frames())
+    card = BackgroundSubtractor(device="cuda")
+    if window is not None:
+        card.WINDOW_BYTES = window * frames[0].nbytes
+    cpu = BackgroundSubtractor(device="cpu")
+    before = ops.LAUNCHES["motion_gate"]
+    got = card.process(frames)
+    n_windows = -(-299 // (window or 299))
+    assert ops.LAUNCHES["motion_gate"] - before == n_windows
+    assert got == [cpu(f) for f in frames]
+    assert sum(len(b) for b in got) > 0
     assert (card.background == cpu.background).all()
 
 
