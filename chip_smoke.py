@@ -27,7 +27,11 @@ Phases, each fatal on failure (no phase's failure is caught):
    with a 20000-row range merged inside the launch among its checks, and
    the tracker itself is timed batched against a per-frame loop of
    launches over the same 120 s (roots identical, and equal to the
-   CPU's); ``centroid_assign`` must run at least a block per SM; ``topk`` is
+   CPU's); ``centroid_assign`` must run at least a block per SM, and its
+   stacked launch (8 stream slots of 512 rows against M in {2048, 4096},
+   a slot with n = 0, an idle slot, ragged B, ties across tiles) must give
+   every slot its solo launch's bits, timed against 8 solo launches, with
+   the stacked unmatched tail against solo scans, bitwise; ``topk`` is
    timed on a batch of the cheap CNN's own probabilities (with a -0.0
    against +0.0 tie among its checks), ``dequant_topk`` also on rows whose
    distinct levels collide (a scale underflowing to 0, levels overflowing
@@ -45,7 +49,10 @@ Phases, each fatal on failure (no phase's failure is caught):
    ``--model/--K/--T``) on the busiest stream (jacksonh, 120 s at 30 fps,
    4 tenants, 3 rounds): it trains spec1-spec3 (each logged loss finite,
    each model's last logged loss below its first), sweeps (model, K, T),
-   selects, ingests with the chosen model and serves; then §6.1
+   selects, ingests with the chosen model and serves; then the same
+   serve with ``--mesh-devices 1 --stream-chunks 8`` on the models just
+   trained (ingest through the sharded pipeline on a one-card mesh): the
+   same choice and answers as the one-shot; then §6.1
    background subtraction: the same 120 s as 3600 full frames through
    ``BackgroundSubtractor(device="cuda")`` in turns per-frame, windowed,
    windowed, per-frame (one ``motion_gate`` launch per frame after the
@@ -63,7 +70,16 @@ Phases, each fatal on failure (no phase's failure is caught):
    path builds, against the staged path (``staged_cheap_apply``) in turns
    staged, pipeline, pipeline, staged: all four indexes byte-identical,
    and a rollover run on a 120 s cut (2048 objects per shard, 8 chunks)
-   whose shards equal the staged rollover's. Each path's launch counters
+   whose shards equal the staged rollover's; then multi-stream ingest
+   (``multistream_path``): eight 120 s streams of the zoo (traffic,
+   surveillance, news) through ``make_sharded_runner`` on
+   ``make_ingest_mesh(1)`` with a ``topk_sink``, 4 chunks a stream per
+   round, interleaved, each stream's index, counters and sink equal to
+   its solo ``IngestPipeline``'s, ``centroid_assign`` and ``topk`` once per
+   stacked step, ≤ 2 dispatches a step; the staged ``MultiStreamRunner``
+   over the same streams equal too; a rollover on a 30 s cut (2048
+   objects per shard) equal to solo rollovers; ``make_ingest_mesh`` past
+   the card count raising its actionable error. Each path's launch counters
    are zeroed just before it and read just after: the one-shot path must
    launch ``centroid_assign`` and ``pixel_match``, the archive path those
    and ``dequant_topk``, the pipeline path ``centroid_assign``,
@@ -363,6 +379,101 @@ def check_centroid_assign(ops, ref, dev):
                              t(r.normal(size=(333, D))), 15.5)[0])
     errs.append(_assign_pair(ops, ref, t(f), t(c[:2048]), T)[0])
     return max(errs), (t(f), t(dead), T)
+
+
+def check_centroid_assign_stacked(ops, ref, dev, peaks):
+    """The stacked launch (one per step of the multi-stream pipeline) at
+    the path's shapes, S = 8 slots of B = 512 against M in {2048, 4096},
+    D = 128: bitwise against S solo launches, indices and matches exact
+    against the plain version; slot 2 has n = 0 (every row dead at 1e9),
+    slot 5 is idle (all-zero features), the tables' halves are duplicates
+    (ties across centroid tiles) and a ragged B = 300 runs too. Then the
+    stacked unmatched tail (``clustering._StackedScan``) against solo
+    scans, bitwise. Returns (max |d2 - plain|, the timed entry at M =
+    4096: stacked against S solo launches, host-inclusive and device)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import clustering as C
+    from repro_torch.hopper import build
+    r = np.random.default_rng(19)
+    S, B, D, T = 8, 512, 128, 15.0
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+    errs, entry = [], None
+    for M in (2048, 4096):
+        f = r.normal(size=(S, B, D)).astype(np.float32)
+        c = r.normal(size=(S, M, D)).astype(np.float32)
+        c[:, M // 2:] = c[:, :M // 2]
+        c[2] = 1e9
+        f[5] = 0.0
+        F, Cc = t(f), t(c)
+        for rows in (B, 300):
+            Fr = F[:, :rows].contiguous()
+            before = ops.LAUNCHES["centroid_assign"]
+            got = ops.centroid_assign_stacked(Fr, Cc, threshold=T)
+            check(ops.LAUNCHES["centroid_assign"] == before + 1,
+                  "centroid_assign_stacked is not one launch")
+            want = ref.centroid_assign_stacked_ref(Fr, Cc, T)
+            for s in range(S):
+                solo = ops.centroid_assign(Fr[s], Cc[s], threshold=T)
+                check(all(torch.equal(a[s], b) for a, b in zip(got, solo)),
+                      f"stacked slot {s} differs from its solo launch "
+                      f"(M={M}, B={rows})")
+            torch.cuda.synchronize()
+            check(torch.equal(got[1], want[1]) and torch.equal(got[2],
+                                                               want[2]),
+                  f"stacked indices or matches differ from the plain "
+                  f"version (M={M}, B={rows})")
+            check((got[1][2] == 0).all() and not got[2][2].any(),
+                  "the n = 0 slot must give index 0, nothing matched")
+            live = torch.ones(S, dtype=torch.bool, device=dev)
+            live[2] = False                 # d2 of dead rows is ~1e20
+            d2, d2r = got[0][live].cpu().numpy(), want[0][live].cpu().numpy()
+            np.testing.assert_allclose(d2, d2r, rtol=1e-5, atol=1e-4)
+            errs.append(float(np.abs(d2 - d2r).max()))
+        if M == 4096:
+            blocks = S * build.load().centroid_assign_blocks(B, M)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            solo = lambda: [ops.centroid_assign(F[s], Cc[s],  # noqa: E731
+                                                threshold=T)
+                            for s in range(S)]
+            n_ops = 2 * S * B * M * D
+            n_bytes = (S * B * D + S * M * D) * 4 + S * B * 9
+            entry = {"shape": [S, B, M, D], "blocks": blocks,
+                     "blocks_per_sm": blocks / sms,
+                     **timings(lambda: ops.centroid_assign_stacked(
+                         F, Cc, threshold=T),
+                         lambda: ref.centroid_assign_stacked_ref(F, Cc, T),
+                         lambda: torch.cdist(F, Cc).pow(2).min(-1)),
+                     "solo_launches_ms": time_ms(solo),
+                     "bound_ms": 1e3 * max(n_ops / peaks["fp32"],
+                                           n_bytes / peaks["bytes"]),
+                     "bound_by": ("operations" if n_ops / peaks["fp32"]
+                                  > n_bytes / peaks["bytes"] else "bytes")}
+            entry["solo_launches_device_ms"], \
+                entry["solo_launches_device_events"] = device_ms(solo)
+    # the stacked unmatched tail against each slot's solo scan
+    M, P = 4096, 32
+    cen = t(r.normal(size=(S, M, D)) * 3)
+    cnt = torch.from_numpy(r.integers(1, 5, (S, M)).astype(np.int32)).to(dev)
+    n = torch.from_numpy(r.integers(0, M // 2, S).astype(np.int32)).to(dev)
+    n[2] = 0
+    sub = t(r.normal(size=(S, P, D)) * 3)
+    valid = torch.from_numpy(r.random((S, P)) < 0.8).to(dev)
+    valid[5] = False                    # a slot that rides along
+    solo = [C._scan_unmatched(C.ClusterState(cen[w], cnt[w], n[w]), sub[w],
+                              valid[w], 4.0) for w in range(S)]
+    state = C.ClusterState(cen.clone(), cnt.clone(), n.clone())
+    ids = C._scan_unmatched_stacked(state, sub, valid, 4.0)
+    torch.cuda.synchronize()
+    for w, (st, sid) in enumerate(solo):
+        check(torch.equal(state.centroids[w], st.centroids)
+              and torch.equal(state.counts[w], st.counts)
+              and torch.equal(state.n[w], st.n) and torch.equal(ids[w], sid),
+              f"the stacked tail differs from slot {w}'s solo scan")
+    return max(errs), entry
 
 
 def _match_pair(ops, ref, a, b, thr):
@@ -845,6 +956,11 @@ def kernel_phase(ops, ref, dev, crops, probs, peaks):
     check(ca["blocks"] >= sms, f"centroid_assign runs {ca['blocks']} "
           f"blocks on {sms} SMs")
     ca_2048 = {"name": "centroid_assign", **ca_entry(f, c[:2048])}
+    stacked_err, ca_stacked = check_centroid_assign_stacked(ops, ref, dev,
+                                                            peaks)
+    ca["max_abs_err"] = max(ca["max_abs_err"], stacked_err)
+    ca["stacked"] = {"path_shape": "the multi-stream step: 8 stream slots "
+                     "in one launch", **ca_stacked}
 
     def pm_entry(a, b, lo=None, hi=None):
         """Timed at one shape; the bound counts the pairs these ranges
@@ -1402,6 +1518,248 @@ def pipeline_rollover(forward, cfg, flops, duration, shard_objects=2048,
                   f"pipeline shard {m.shard_id} differs from the staged one")
         out.update(shards=len(cs), shards_identical=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: multi-stream ingest (the sharded runner on a one-card mesh)
+# ---------------------------------------------------------------------------
+
+# eight cameras of the zoo: traffic, surveillance and news
+MULTI_STREAMS = ("jacksonh", "city_a_d", "auburn_c", "church_st", "sittard",
+                 "cnn", "foxnews", "msnbc")
+
+
+def _chunked(streams, n_chunks):
+    """Round r's chunk of every stream: {name: (crops, frames)}."""
+    import numpy as np
+    bounds = {nm: np.linspace(0, len(c), n_chunks + 1).astype(int)
+              for nm, (c, _) in streams.items()}
+    return [{nm: (c[bounds[nm][r]:bounds[nm][r + 1]],
+                  f[bounds[nm][r]:bounds[nm][r + 1]])
+             for nm, (c, f) in streams.items()} for r in range(n_chunks)]
+
+
+def _digest_sink(digests):
+    """A ``topk_sink(name, objs, vals, idxs)`` hashing each stream's sunk
+    rows in order (the rows of 40k objects x 1000 classes do not belong
+    in host memory twice)."""
+    import hashlib
+
+    def sink(name, objs, vals, idxs):
+        h = digests.setdefault(name, hashlib.sha256())
+        for a in (objs, vals, idxs):
+            h.update(a.tobytes())
+    return sink
+
+
+def _solo_pipelines(forward, cfg, flops, rounds, sink_digests):
+    """Each stream through its own ``IngestPipeline`` over the same
+    chunks, back to back; returns ({name: (bytes, counters)}, wall s)."""
+    import torch
+    from repro_torch.core.pipeline import IngestPipeline
+    from repro_torch.core.streaming import StreamingIngestor
+    out, wall = {}, 0.0
+    for nm in rounds[0]:
+        sink = _digest_sink(sink_digests)
+        ing = StreamingIngestor(
+            None, flops, cfg, n_local_classes=1000,
+            pipeline=IngestPipeline(forward, cfg, topk_sink=lambda o, v, i,
+                                    nm=nm: sink(nm, o, v, i)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for chunks in rounds:
+            ing.feed(*chunks[nm])
+            ing.flush()
+        index, stats = ing.finish()
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        out[nm] = (index.save_bytes(), vars(stats) | {"wall_s": 0})
+    return out, wall
+
+
+def multistream_path(ops, forward, mcfg, duration=120, n_chunks=4):
+    """Eight 120 s streams through ``make_sharded_runner`` on a one-card
+    ``make_ingest_mesh(1)`` with a ``topk_sink``, fed 4 chunks a stream
+    per round, interleaved; launch counters zeroed just before and read
+    just after. Every stream must save its solo ``IngestPipeline``'s
+    bytes, counters and sink; ``centroid_assign`` and ``topk`` launch once
+    per stacked step (not per stream batch), at most 2 dispatches a step.
+    Then the staged ``MultiStreamRunner`` (each stream's batch forwarded
+    at its solo shape) over the same streams, a rollover run on a 30 s cut
+    of them (2048 objects per shard) against solo rollovers, and
+    ``make_ingest_mesh(2)``'s error on a one-card machine. Records whether
+    a stacked forward (8 x 512 crops) gives the solo forward's rows."""
+    import numpy as np
+    import torch
+    from repro_torch.core.ingest import IngestConfig
+    from repro_torch.core.pipeline import staged_cheap_apply
+    from repro_torch.core.streaming import (MultiStreamRunner,
+                                            StreamingIngestor,
+                                            make_sharded_runner)
+    from repro_torch.data.video import get_stream
+    from repro_torch.launch.mesh import make_ingest_mesh
+
+    # the pipeline path's config: K=1000, T=0.4, M=4096, batch 512
+    cfg = IngestConfig(K=1000, threshold=0.4)
+    flops = mcfg.flops_per_image()
+    streams = {nm: get_stream(nm, duration_s=duration,
+                              fps=30).objects_array()[:2]
+               for nm in MULTI_STREAMS}
+    n_objects = sum(len(c) for c, _ in streams.values())
+    rounds = _chunked(streams, n_chunks)
+    digests = {}
+    runner = make_sharded_runner(forward, make_ingest_mesh(1),
+                                 list(MULTI_STREAMS), cfg=cfg,
+                                 topk_sink=_digest_sink(digests),
+                                 n_local_classes=1000,
+                                 cheap_flops_per_image=flops)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for chunks in rounds:
+        runner.feed(chunks)
+        runner.flush()
+    got = runner.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    st = runner.pipeline.stats
+    check(all(launches[k] > 0 for k in ("centroid_assign", "pixel_match",
+                                        "topk")),
+          f"a kernel of the multistream path never launched: {launches}")
+    check(launches["centroid_assign"] == st.n_steps,
+          f"centroid_assign launched {launches['centroid_assign']} times in "
+          f"{st.n_steps} stacked steps")
+    check(launches["topk"] == st.n_steps,
+          f"topk launched {launches['topk']} times in {st.n_steps} steps")
+    check(st.n_dispatches <= 2 * st.n_steps, "over 2 dispatches a step")
+    check(st.n_batches > st.n_steps, "no step carried two streams")
+    solo_digests = {}
+    solo, solo_wall = _solo_pipelines(forward, cfg, flops, rounds,
+                                      solo_digests)
+    for nm in MULTI_STREAMS:
+        index, stats = got[nm]
+        check(index.save_bytes() == solo[nm][0],
+              f"{nm}: the sharded index differs from the solo pipeline's")
+        check(vars(stats) | {"wall_s": 0} == solo[nm][1],
+              f"{nm}: IngestStats counters differ from the solo run's")
+        check(digests[nm].digest() == solo_digests[nm].digest(),
+              f"{nm}: the sink's top-K differs from the solo run's")
+    per_stream = {nm: {"objects": len(streams[nm][0]),
+                       "cnn": got[nm][1].n_cnn_invocations,
+                       "clusters": got[nm][0].n_clusters,
+                       "evictions": got[nm][1].n_evictions}
+                  for nm in MULTI_STREAMS}
+    del got
+
+    # the staged runner: one cheap_apply, each stream's batch forwarded at
+    # its solo shape; it must save the solo pipelines' bytes too
+    staged = MultiStreamRunner(
+        {nm: StreamingIngestor(None, flops, cfg, n_local_classes=1000)
+         for nm in MULTI_STREAMS},
+        cheap_apply=staged_cheap_apply(forward, cfg))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for chunks in rounds:
+        staged.feed(chunks)
+        staged.flush()
+    staged_got = staged.finish()
+    torch.cuda.synchronize()
+    staged_wall = time.perf_counter() - t0
+    for nm, (index, _) in staged_got.items():
+        check(index.save_bytes() == solo[nm][0],
+              f"{nm}: the staged runner's index differs from the solo "
+              f"pipeline's")
+    del solo, rounds, staged_got
+
+    # does one stacked forward (8 x 512 crops) give the solo rows here?
+    x = torch.from_numpy(streams["jacksonh"][0][:8 * 512]).to(
+        runner.pipeline.mesh.devices[0])
+    p_all, f_all = forward(x)
+    rows_equal = all(
+        torch.equal(torch.cat(forward(x[i * 512:(i + 1) * 512]), 1),
+                    torch.cat((p_all, f_all), 1)[i * 512:(i + 1) * 512])
+        for i in range(8))
+    del x, p_all, f_all, streams
+    try:
+        make_ingest_mesh(torch.cuda.device_count() + 1)
+        raise AssertionError("make_ingest_mesh beyond the cards did not "
+                             "raise")
+    except ValueError as e:
+        check("device='cpu'" in str(e), f"not actionable: {e}")
+    return {
+        "streams": list(MULTI_STREAMS), "duration_s": duration,
+        "chunks_per_stream": n_chunks, "objects": n_objects,
+        "launches": launches, "pipeline_stats": vars(st),
+        "dispatches_per_step": st.n_dispatches / st.n_steps,
+        "batches_per_step": st.n_batches / st.n_steps,
+        "sharded_wall_s": wall, "sharded_objects_per_s": n_objects / wall,
+        "solo_pipelines_wall_s": solo_wall,
+        "solo_pipelines_objects_per_s": n_objects / solo_wall,
+        "staged_runner_wall_s": staged_wall,
+        "staged_runner_objects_per_s": n_objects / staged_wall,
+        "bytes_identical": True, "per_stream": per_stream,
+        "stacked_forward_rows_equal_solo": rows_equal,
+        "mesh_error": "make_ingest_mesh(n > cards) raised ValueError",
+        "rollover": multistream_rollover(forward, cfg, flops),
+    }
+
+
+def multistream_rollover(forward, cfg, flops, duration=30,
+                         shard_objects=2048, n_chunks=4):
+    """The sharded runner with a catalog per stream on a ``duration`` s cut
+    of the eight streams, against each stream's solo pipeline rollover:
+    manifests and every sealed shard identical."""
+    import torch
+    from repro_torch.core.archive import ShardCatalog
+    from repro_torch.core.index import saved_file_bytes
+    from repro_torch.core.pipeline import IngestPipeline
+    from repro_torch.core.streaming import (StreamingIngestor,
+                                            make_sharded_runner)
+    from repro_torch.data.video import get_stream
+    from repro_torch.launch.mesh import make_ingest_mesh
+
+    streams = {nm: get_stream(nm, duration_s=duration,
+                              fps=30).objects_array()[:2]
+               for nm in MULTI_STREAMS}
+    rounds = _chunked(streams, n_chunks)
+    with tempfile.TemporaryDirectory() as root:
+        cats = {(mode, nm): ShardCatalog.open(os.path.join(root, mode, nm))
+                for mode in ("sharded", "solo") for nm in MULTI_STREAMS}
+        runner = make_sharded_runner(
+            forward, make_ingest_mesh(1), list(MULTI_STREAMS), cfg=cfg,
+            n_local_classes=1000, cheap_flops_per_image=flops,
+            ingestor_kwargs={nm: dict(catalog=cats["sharded", nm],
+                                      shard_objects=shard_objects)
+                             for nm in MULTI_STREAMS})
+        for chunks in rounds:
+            runner.feed(chunks)
+            runner.flush()
+        runner.finish()
+        for nm in MULTI_STREAMS:
+            ing = StreamingIngestor(
+                None, flops, cfg, n_local_classes=1000,
+                catalog=cats["solo", nm], shard_objects=shard_objects,
+                pipeline=IngestPipeline(forward, cfg))
+            for chunks in rounds:
+                ing.feed(*chunks[nm])
+                ing.flush()
+            ing.finish()
+        torch.cuda.synchronize()
+        n_shards = {}
+        for nm in MULTI_STREAMS:
+            cs, cp = cats["solo", nm], cats["sharded", nm]
+            check([vars(m) for m in cs] == [vars(m) for m in cp],
+                  f"{nm}: sharded and solo rollover manifests differ")
+            for m in cs:
+                check(saved_file_bytes(cs.path_of(m.shard_id))
+                      == saved_file_bytes(cp.path_of(m.shard_id)),
+                      f"{nm}: sharded shard {m.shard_id} differs from the "
+                      f"solo one")
+            n_shards[nm] = len(cs)
+    return {"duration_s": duration, "shard_objects": shard_objects,
+            "chunks": n_chunks, "shards": n_shards,
+            "shards_identical": True}
 
 
 # ---------------------------------------------------------------------------
@@ -2207,6 +2565,7 @@ def compare(parent_root, smi):
 
 
 def main():
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA device: this script runs on the card",
@@ -2301,8 +2660,24 @@ def main():
             report, default = drive("default", default_argv,
                                     ("centroid_assign", "pixel_match"),
                                     default_s)
+            # the same serve with its ingest through the sharded pipeline
+            # on a one-card mesh, in 8 chunks, on the models just trained
+            mesh_report, mesh_serve = drive(
+                "mesh_serve", default_argv + ["--mesh-devices", "1",
+                                              "--stream-chunks", "8"],
+                ("centroid_assign", "pixel_match"), default_s)
         finally:
             zoo.CACHE_DIR = cache_dir
+        check(all(m["train_s"] is None
+                  for m in mesh_report["selection"]["models"].values()),
+              "the --mesh-devices serve retrained a model")
+        check(mesh_report["selection"]["choice"]
+              == report["selection"]["choice"],
+              "the --mesh-devices serve chose another configuration")
+        check(list(mesh_report["answers"]) == list(report["answers"])
+              and all(np.array_equal(mesh_report["answers"][x], a)
+                      for x, a in report["answers"].items()),
+              "the --mesh-devices serve answers differ from the one-shot's")
         # the chosen model, loaded from this run's cache, for phase 5
         choice = report["selection"]["choice"]
         crops_d, _, _, labels_d = get_stream(
@@ -2348,13 +2723,25 @@ def main():
     pipe = pipeline_path(ops, forward, mcfg, serve_args, duration)
     emit({"phase": "pipeline_path", "gpu": smi, **pipe,
           "elapsed_s": elapsed()})
+    t_multi = time.perf_counter()
+    multi = multistream_path(ops, forward, mcfg)
+    emit({"phase": "multistream_path", "gpu": smi, **multi,
+          "serve_mesh_devices_1": {
+              "argv": ["--mesh-devices", "1", "--stream-chunks", "8"],
+              "launches": mesh_serve, "choice_equal": True,
+              "answers_equal": True,
+              "ingest_objects_per_s": mesh_report["ingest_objects_per_s"]},
+          "path_s": time.perf_counter() - t_multi, "elapsed_s": elapsed()})
     for entry in (ca, pm):
         entry["launches"] = oneshot[entry["name"]]
         entry["launches_default"] = default[entry["name"]]
         entry["launches_archive"] = archive[entry["name"]]
         entry["launches_pipeline"] = pipe["launches"][entry["name"]]
+        entry["launches_multistream"] = multi["launches"][entry["name"]]
+        entry["launches_mesh_serve"] = mesh_serve[entry["name"]]
     dq["launches"] = archive["dequant_topk"]
     tk["launches"] = pipe["launches"]["topk"]
+    tk["launches_multistream"] = multi["launches"]["topk"]
     lm = lm_path(ops, peaks)
     emit({"phase": "lm_path", "gpu": smi, **lm, "elapsed_s": elapsed()})
     fa["launches"] = lm["launches"]["flash_attention"]
@@ -2377,7 +2764,9 @@ def main():
     emit({"phase": "launches_per_path", "gpu": smi, **{
         name: {"oneshot_600s": oneshot[name], "archive_600s": archive[name],
                "pipeline_600s": pipe["launches"][name],
-               "default_serve_120s": default[name]}
+               "default_serve_120s": default[name],
+               "mesh_serve_120s": mesh_serve[name],
+               "multistream_8x120s": multi["launches"][name]}
         for name in ("pixel_match", "centroid_assign")}})
     emit({"kernels": [ca, pm, dq, tk, mg, fa]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

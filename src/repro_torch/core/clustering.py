@@ -66,39 +66,23 @@ def _as_feats(feats, device: torch.device) -> torch.Tensor:
 class _Scan:
     """The sequential rule over a private copy of a state: ``step`` assigns
     one feature (in place) and returns its cluster id as a 0-d tensor.
-    ``valid`` False makes the step a no-op that returns -1."""
+    ``valid`` False makes the step a no-op that returns -1. It is
+    ``_StackedScan`` at one slot, on views of the copy."""
 
     def __init__(self, state: ClusterState, threshold: float):
-        self.cent = state.centroids.clone()
-        self.counts = state.counts.clone()
+        dense = torch.contiguous_format
+        self.cent = state.centroids.clone(memory_format=dense)
+        self.counts = state.counts.clone(memory_format=dense)
         self.n = state.n.clone()
-        dev = self.cent.device
-        self.M = self.cent.shape[0]
-        self.t2 = threshold_sq(threshold).to(dev)
-        self.slots = torch.arange(self.M, device=dev)
-        self.true = torch.ones((), dtype=torch.bool, device=dev)
+        self._one = _StackedScan(
+            ClusterState(self.cent[None], self.counts[None], self.n.view(1)),
+            threshold)
+        self.true = torch.ones((1,), dtype=torch.bool,
+                               device=self.cent.device)
 
     def step(self, f: torch.Tensor, valid: Optional[torch.Tensor] = None):
-        valid = self.true if valid is None else valid
-        diff = self.cent - f[None, :]
-        d2 = torch.where(self.slots < self.n, (diff * diff).sum(-1),
-                         float("inf"))
-        best, j = d2.min(0)                 # first index of the minimum
-        make_new = ~(best <= self.t2) & (self.n < self.M) & valid
-        # if full and nothing within T: the paper evicts the smallest; here
-        # the object joins the nearest cluster and the ingestor evicts
-        # between batches
-        cid = torch.where(make_new, self.n.long(), j).reshape(1)
-        cnt = self.counts.index_select(0, cid)
-        old_c = self.cent.index_select(0, cid)
-        new_count = torch.where(make_new, 1, cnt + 1)
-        new_c = torch.where(make_new, f[None, :],
-                            old_c + (f[None, :] - old_c)
-                            / new_count[:, None])
-        self.cent.index_copy_(0, cid, torch.where(valid, new_c, old_c))
-        self.counts.index_copy_(0, cid, torch.where(valid, new_count, cnt))
-        self.n = torch.where(make_new, self.n + 1, self.n)
-        return torch.where(valid, cid[0], -1)
+        valid = self.true if valid is None else valid.view(1)
+        return self._one.step(f[None], valid)[0]
 
     def state(self) -> ClusterState:
         return ClusterState(self.cent, self.counts, self.n)
@@ -124,13 +108,27 @@ def cluster_scan(state: ClusterState, feats, threshold: float):
 
 def _phase1(state: ClusterState, feats: torch.Tensor, threshold: float
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel distances against the batch-start centroid table. Dead slots
-    (>= n) are pushed to a far sentinel so the kernel's online argmin never
-    selects them; the threshold compare is fused into the kernel."""
-    M = state.centroids.shape[0]
-    live = (torch.arange(M, device=feats.device) < state.n)[:, None]
-    masked = torch.where(live, state.centroids, 1e9)
-    _, j, matched = hops.centroid_assign(feats, masked, threshold=threshold)
+    """Kernel distances against the batch-start centroid table: the
+    one-slot case of ``_phase1_stacked``."""
+    j, matched = _phase1_stacked(state.centroids[None], state.n.view(1),
+                                 feats[None], threshold)
+    return j[0], matched[0]
+
+
+def _phase1_stacked(centroids: torch.Tensor, n: torch.Tensor,
+                    feats: torch.Tensor, threshold: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1 for S stream slots in one kernel launch: feats (S, B, D)
+    against the stacked tables centroids (S, M, D) with live counts n
+    (S,). Each slot's dead rows (>= its n) are pushed to a far sentinel so
+    the kernel's online argmin never selects them; the threshold compare
+    is fused into the kernel."""
+    M = centroids.shape[1]
+    live = (torch.arange(M, device=feats.device)[None, :]
+            < n[:, None])[:, :, None]
+    masked = torch.where(live, centroids, 1e9)
+    _, j, matched = hops.centroid_assign_stacked(feats, masked,
+                                                 threshold=threshold)
     return j, matched
 
 
@@ -172,7 +170,20 @@ def _fold_matched(state: ClusterState, feats: torch.Tensor, j: np.ndarray,
                   matched: np.ndarray) -> ClusterState:
     """Fold every phase-1-matched object into its centroid in one shot:
     ``(c·cnt + Σf) / max(cnt + k, 1)``, which equals k sequential
-    running-mean folds up to float association.
+    running-mean folds up to float association. Returns a new state
+    (``_fold_matched_`` folds in place)."""
+    if not matched.any():
+        return state
+    centroids = state.centroids.clone()
+    counts = state.counts.clone()
+    _fold_matched_(centroids, counts, feats, j, matched)
+    return ClusterState(centroids, counts, state.n)
+
+
+def _fold_matched_(centroids: torch.Tensor, counts: torch.Tensor,
+                   feats: torch.Tensor, j: np.ndarray, matched: np.ndarray):
+    """``_fold_matched`` in place on one table: centroids (M, D), counts
+    (M,), which may be one slot of a stacked table.
 
     The segment sum runs in a fixed order, so the centroid bits are the
     same on every run (``index_add_`` on CUDA uses atomics, whose order —
@@ -184,7 +195,7 @@ def _fold_matched(state: ClusterState, feats: torch.Tensor, j: np.ndarray,
     """
     rows = np.nonzero(matched)[0]
     if len(rows) == 0:
-        return state
+        return
     seg = j[rows].astype(np.int64)
     order = np.argsort(seg, kind="stable")          # batch order per cluster
     seg, rows = seg[order], rows[order]
@@ -200,16 +211,13 @@ def _fold_matched(state: ClusterState, feats: torch.Tensor, j: np.ndarray,
         feats[torch.from_numpy(rows).to(dev)]
     feat_sum = block.sum(1)
     slots = torch.from_numpy(uniq).to(dev)
-    old_cnt = state.counts[slots]
+    old_cnt = counts[slots]
     new_cnt = old_cnt + torch.from_numpy(add_cnt.astype(np.int32)).to(dev)
     denom = torch.clamp(new_cnt, min=1).float()[:, None]
-    folded = (state.centroids[slots] * old_cnt.float()[:, None]
+    folded = (centroids[slots] * old_cnt.float()[:, None]
               + feat_sum) / denom
-    centroids = state.centroids.clone()
-    counts = state.counts.clone()
     centroids[slots] = folded
     counts[slots] = new_cnt
-    return ClusterState(centroids, counts, state.n)
 
 
 def _pad_bucket(n: int) -> int:
@@ -226,8 +234,75 @@ def _scan_unmatched(state: ClusterState, sub: torch.Tensor,
     """Sequential rule over the gathered unmatched rows; padded rows
     (valid False) are no-ops and return id -1."""
     scan = _Scan(state, threshold)
-    ids = [scan.step(f, v) for f, v in zip(sub, valid)]
-    return scan.state(), _ids(ids, sub.device)
+    ids = scan._one.run(sub[None], valid[None])[0]
+    return scan.state(), ids
+
+
+class _StackedScan:
+    """The sequential rule over W stream slots at once, in place on a
+    stacked state (centroids (W, M, D), counts (W, M), n (W,)): ``step``
+    assigns row t of every slot together and returns the W cluster ids; a
+    slot whose ``valid`` is False is a no-op that returns -1. Each slot
+    gets the bits of a one-slot scan of its own table, provided the
+    (W, M, D) distance sum reduces each row as the (1, M, D) one does (the
+    CPU tests and ``chip_smoke.py`` on the card hold the stacked tail
+    against solo scans)."""
+
+    def __init__(self, state: ClusterState, threshold: float):
+        self.cent, self.counts, self.n = state
+        dev = self.cent.device
+        W, self.M = self.counts.shape
+        # the (W * M) rows of the tables, addressed as slot * M + cid; the
+        # views follow the in-place updates. The step is host-bound (a
+        # few dozen small ops a row), so nothing is recomputed per step
+        # that can be made once here.
+        self.flat_cent = self.cent.view(W * self.M, -1)
+        self.flat_counts = self.counts.view(-1)
+        self.n_col = self.n.view(W, 1)
+        self.base = (None if W == 1
+                     else torch.arange(W, device=dev) * self.M)
+        self.t2 = threshold_sq(threshold).to(dev)
+        self.cols = torch.arange(self.M, device=dev)[None, :]
+
+    def step(self, f: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        diff = self.cent - f[:, None, :]
+        d2 = torch.where(self.cols < self.n_col, (diff * diff).sum(-1),
+                         float("inf"))
+        best, j = d2.min(1)                 # first index of the minimum
+        make_new = ~(best <= self.t2) & (self.n < self.M) & valid
+        # if full and nothing within T: the paper evicts the smallest; here
+        # the object joins the nearest cluster and the ingestor evicts
+        # between batches
+        cid = torch.where(make_new, self.n.long(), j)
+        at = cid if self.base is None else self.base + cid
+        cnt = self.flat_counts.index_select(0, at)
+        old_c = self.flat_cent.index_select(0, at)
+        new_count = torch.where(make_new, 1, cnt + 1)
+        new_c = torch.where(make_new[:, None], f,
+                            old_c + (f - old_c) / new_count[:, None])
+        self.flat_cent.index_copy_(0, at,
+                                   torch.where(valid[:, None], new_c, old_c))
+        self.flat_counts.index_copy_(0, at,
+                                     torch.where(valid, new_count, cnt))
+        self.n.add_(make_new)               # one more where a cluster opened
+        return torch.where(valid, cid, -1)
+
+    def run(self, sub: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+        """Step row t of every slot for t = 0 .. P-1: sub (W, P, D), valid
+        (W, P), P >= 1. Returns the ids (W, P) int32 (-1 where not
+        valid)."""
+        ids = [self.step(f, v)
+               for f, v in zip(sub.transpose(0, 1), valid.t())]
+        return torch.stack(ids, 1).to(torch.int32)
+
+
+def _scan_unmatched_stacked(state: ClusterState, sub: torch.Tensor,
+                            valid: torch.Tensor, threshold: float
+                            ) -> torch.Tensor:
+    """``_scan_unmatched`` for W slots in one pass, in place on the stacked
+    ``state``: sub (W, P, D) gathered rows, valid (W, P). Returns the ids
+    (W, P) int32 (-1 where not valid); P >= 1."""
+    return _StackedScan(state, threshold).run(sub, valid)
 
 
 def cluster_fused(state: ClusterState, feats, threshold: float):

@@ -30,12 +30,19 @@ Pixel differencing and clustering run on the ingestor's ``device``. With
 a ``core.pipeline.IngestPipeline`` the CNN and clustering of every batch
 run as the fused, double-buffered megastep instead of host-staged
 ``cheap_apply`` calls; the saved bytes are the same.
+
+Many cameras: ``MultiStreamRunner`` round-robins N ingestors, either
+through one ``cheap_apply`` (staged) or through one
+``core.pipeline.ShardedIngestPipeline`` whose stacked steps carry a batch
+of every stream (``make_sharded_runner``); ``StreamPlacement`` maps the
+streams onto the ingest mesh's blocks. Every stream saves the bytes of
+its solo run.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -365,9 +372,11 @@ class StreamingIngestor:
     through the CNN, so a catalog needs ``cheap_apply`` or ``pipeline``.
 
     ``pipeline`` (a ``core.pipeline.IngestPipeline`` on the same
-    ``device``) replaces ``cheap_apply``: pass one or the other. The
-    ingestor binds the pipeline last, so a constructor that raises leaves
-    it unbound.
+    ``device``, or a ``ShardedIngestPipeline`` slot handle) replaces
+    ``cheap_apply``: pass one or the other. The ingestor binds the
+    pipeline last, so a constructor that raises leaves it unbound. With
+    neither, the ingestor is runner-driven: a staged
+    ``MultiStreamRunner`` takes its ready batches and folds them.
     """
 
     def __init__(self, cheap_apply: Optional[Callable],
@@ -478,6 +487,12 @@ class StreamingIngestor:
     def index(self) -> Optional[TopKIndex]:
         """The live index (None until the class width is known)."""
         return self._index
+
+    @property
+    def _runner_driven(self) -> bool:
+        """Neither ``cheap_apply`` nor a pipeline: a staged
+        ``MultiStreamRunner`` folds this ingestor's batches."""
+        return self.cheap_apply is None and self.pipeline is None
 
     @property
     def n_ready_batches(self) -> int:
@@ -626,7 +641,8 @@ class StreamingIngestor:
         else:
             self._buf.append(crops, obj_ids, frames)
         self.stats.wall_s += time.perf_counter() - t0
-        self._drain_ready()
+        if not self._runner_driven:
+            self._drain_ready()
 
     def _resolve_segment(self, f: int, crops: np.ndarray,
                          frames: np.ndarray, ids: np.ndarray):
@@ -917,8 +933,14 @@ class StreamingIngestor:
                 self._index = self._empty_index()
             self._finished = True
             return self._index, self.stats
-        self._drain_ready()
+        if not self._runner_driven:
+            self._drain_ready()
         if len(self._buf):
+            if self._runner_driven:
+                raise RuntimeError(
+                    "pending unique objects but no cheap_apply; a "
+                    "runner-driven ingestor must be finished through "
+                    "MultiStreamRunner.finish()")
             self._fold_crops(*self.take_tail())
         if self.pipeline is not None:
             self.pipeline.flush_pending()
@@ -929,3 +951,190 @@ class StreamingIngestor:
         self._dup_objs, self._dup_frames, self._dup_roots = [], [], []
         self._finished = True
         return self._index, self.stats
+
+
+class StreamPlacement:
+    """Deterministic stream -> mesh block placement for sharded ingest
+    (DESIGN.md §13).
+
+    A pure function of ``(names, n_devices)``, round-robin in the given
+    name order: stream ``i`` lives on block ``i % n_devices``. The
+    device-major ``slots`` list (each block's streams padded with
+    ``None`` to a common width) is exactly the slot layout a
+    ``ShardedIngestPipeline`` stacks along its leading stream axis, so the
+    placement — and with it every stream's block and stacked row — is
+    the same in every run and independent of feed() chunking.
+    """
+
+    def __init__(self, names, n_devices: int):
+        names = list(names)
+        if not names:
+            raise ValueError("need at least one stream name")
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate stream names in {names!r}")
+        if n_devices < 1:
+            raise ValueError(f"n_devices must be >= 1, got {n_devices}")
+        self.names = names
+        self.n_devices = n_devices
+        self.width = -(-len(names) // n_devices)        # ceil
+        blocks: List[List[Optional[str]]] = [[] for _ in range(n_devices)]
+        for i, nm in enumerate(names):
+            blocks[i % n_devices].append(nm)
+        for b in blocks:
+            b.extend([None] * (self.width - len(b)))
+        self.slots: List[Optional[str]] = [nm for b in blocks for nm in b]
+        self._slot_of = {nm: s for s, nm in enumerate(self.slots)
+                         if nm is not None}
+
+    @property
+    def n_slots(self) -> int:
+        return len(self.slots)
+
+    def slot_of(self, name: str) -> int:
+        return self._slot_of[name]
+
+    def device_of(self, name: str) -> int:
+        return self._slot_of[name] // self.width
+
+    def assignment(self) -> Dict[str, int]:
+        """{stream name: block index} — the reproducibility contract."""
+        return {nm: self.device_of(nm) for nm in self.names}
+
+
+class MultiStreamRunner:
+    """Round-robins N per-stream ingestors through ONE shared cheap CNN.
+
+    Two modes:
+
+    * **Staged** (``cheap_apply`` given; the ingestors have neither
+      ``cheap_apply`` nor a pipeline): every ``step`` takes one ready
+      batch (exactly ``cfg.batch_size`` unique crops) from each stream, in
+      a rotating order, and folds it. Each stream's batch goes through
+      ``cheap_apply`` at its own solo shape: the JAX package stacks the
+      batches into one padded forward, but on the card a stacked forward
+      gives other bits than the solo one (cuDNN and cuBLAS pick their
+      algorithms by batch size), and the solo bits are the contract.
+    * **Sharded** (``pipeline`` = a ``ShardedIngestPipeline``): each
+      ingestor was constructed with ``pipeline=shared.handle(name)``;
+      feeds enqueue per-stream batches and every ``step()`` runs ONE
+      stacked step over the head batch of each stream (see
+      ``make_sharded_runner``). The runner turns off the pipeline's
+      auto-pump so batches stack *across* streams.
+
+    Either way, per-stream fold order is preserved, so each stream's
+    index is byte-identical to a self-driven run of its own.
+    """
+
+    def __init__(self, ingestors: Mapping[str, StreamingIngestor],
+                 cheap_apply: Optional[Callable] = None, pipeline=None,
+                 placement: Optional[StreamPlacement] = None):
+        if not ingestors:
+            raise ValueError("need at least one ingestor")
+        if (cheap_apply is None) == (pipeline is None):
+            raise ValueError(
+                "pass exactly one of cheap_apply (staged) or pipeline "
+                "(ShardedIngestPipeline)")
+        if pipeline is not None:
+            for name, ing in ingestors.items():
+                h = ing.pipeline
+                if h is None or getattr(h, "shared", None) is not pipeline:
+                    raise ValueError(
+                        f"ingestor {name!r} is not bound to this sharded "
+                        f"pipeline; construct it with "
+                        f"pipeline=shared.handle({name!r})")
+            pipeline.auto_pump = False   # the runner owns step timing
+        else:
+            for name, ing in ingestors.items():
+                if not ing._runner_driven:
+                    raise ValueError(
+                        f"ingestor {name!r} owns a cheap_apply/pipeline; "
+                        f"runner-driven ingestors must be constructed "
+                        f"with neither")
+        self.ingestors: Dict[str, StreamingIngestor] = dict(ingestors)
+        self.cheap_apply = cheap_apply
+        self.pipeline = pipeline
+        self.placement = placement
+        self._rotation = list(self.ingestors)
+
+    def feed(self, feeds: Mapping[str, Tuple[np.ndarray, np.ndarray]]):
+        """Feed per-stream chunks, then fold every ready batch."""
+        for name, (crops, frames) in feeds.items():
+            self.ingestors[name].feed(crops, frames)
+        self.drain()
+
+    def step(self) -> int:
+        """Up to one ready batch per stream. Staged mode rotates which
+        stream goes first; sharded mode folds the head batch of every
+        queued stream in one stacked step. Returns objects folded (0 =
+        nothing ready)."""
+        if self.pipeline is not None:
+            for ing in self.ingestors.values():
+                ing._drain_ready()       # enqueue ready batches
+            return self.pipeline.pump_one()
+        parts = []
+        for name in self._rotation:
+            ing = self.ingestors[name]
+            if ing.n_ready_batches:
+                parts.append((ing, *ing.take_ready_batch()))
+        self._rotation = self._rotation[1:] + self._rotation[:1]
+        self._fold_parts(parts)
+        return int(sum(len(p[2]) for p in parts))
+
+    def drain(self):
+        while self.step():
+            pass
+
+    def _fold_parts(self, parts):
+        for ing, crops, objs, frames in parts:
+            t0 = time.perf_counter()
+            probs, feats = self.cheap_apply(crops)
+            ing.stats.wall_s += time.perf_counter() - t0
+            ing.fold_batch(crops, objs, frames, probs, feats)
+
+    def flush(self) -> Dict[str, IngestDelta]:
+        self.drain()
+        return {name: ing.flush() for name, ing in self.ingestors.items()}
+
+    def finish(self) -> Dict[str, Tuple[TopKIndex, IngestStats]]:
+        """Fold the ragged per-stream tails, then finalize every
+        ingestor."""
+        self.drain()
+        if self.pipeline is None:
+            self._fold_parts([(ing, *ing.take_tail())
+                              for ing in self.ingestors.values()
+                              if ing.n_pending_unique])
+        # with a pipeline each finish() submits its own tail and flushes
+        # the shared pipeline; catalog'd streams seal themselves
+        return {name: ing.finish() for name, ing in self.ingestors.items()}
+
+
+def make_sharded_runner(forward: Callable, mesh, stream_names,
+                        cfg: Optional[IngestConfig] = None,
+                        topk_k: Optional[int] = None,
+                        topk_sink: Optional[Callable] = None,
+                        ingestor_kwargs: Optional[Mapping[str, dict]] = None,
+                        **common_kwargs) -> MultiStreamRunner:
+    """The whole sharded multi-stream stack: a ``StreamPlacement`` over
+    ``mesh.size`` blocks, one shared ``ShardedIngestPipeline`` running the
+    tensor-level ``forward``, one ``StreamingIngestor`` per stream bound
+    to its slot handle on its block's device, and a ``MultiStreamRunner``
+    driving it.
+
+    ``ingestor_kwargs`` maps stream name -> extra ``StreamingIngestor``
+    kwargs (e.g. a per-stream ``catalog``); ``common_kwargs`` go to every
+    ingestor. Per-stream cfg overrides are rejected by the pipeline — the
+    stacked cluster tables share one shape and threshold.
+    """
+    from repro_torch.core.pipeline import ShardedIngestPipeline
+    placement = StreamPlacement(stream_names, mesh.size)
+    shared = ShardedIngestPipeline(forward, mesh, placement.slots, cfg=cfg,
+                                   topk_k=topk_k, topk_sink=topk_sink)
+    ingestors = {}
+    for nm in placement.names:
+        kw = dict(common_kwargs)
+        kw.update((ingestor_kwargs or {}).get(nm, {}))
+        kw.setdefault("cfg", cfg)
+        kw.setdefault("device", mesh.devices[placement.device_of(nm)])
+        ingestors[nm] = StreamingIngestor(None, pipeline=shared.handle(nm),
+                                          **kw)
+    return MultiStreamRunner(ingestors, pipeline=shared, placement=placement)

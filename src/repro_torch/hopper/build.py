@@ -32,6 +32,8 @@ _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "centroid_assign_launch": (_vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
                                _int, _float, _vp),
+    "centroid_assign_stacked_launch": (_vp, _vp, _vp, _vp, _vp, _vp, _int,
+                                       _int, _int, _int, _float, _vp),
     "centroid_assign_blocks": (_int, _int),
     "pixel_match_launch": (_vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
                            _int, _int, _float, _vp),

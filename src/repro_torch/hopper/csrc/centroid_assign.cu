@@ -42,6 +42,13 @@
 //    keys and counters with one cudaMemsetAsync; no second kernel;
 //  * a row whose scores are all inf or NaN gets index 0 and inf, as on the
 //    TPU;
+//  * blockIdx.z is a stream slot: the stacked entry point runs S problems
+//    of one (B, M, D) in one launch (the multi-stream pipeline's phase 1,
+//    one table per stream), each slot with its own keys and row-tile
+//    counters in the scratch. A slot runs the same body on the same tiles
+//    in the same k order as a launch of its own, and the atomicMin merge
+//    does not depend on order, so every slot's outputs are bitwise those
+//    of a solo launch; the solo entry point is the S = 1 case;
 //  * the ragged B and M edges (and a D that is not a multiple of kBK) are
 //    masked in the kernel: the tile loads read zeros past them and the
 //    epilogue skips them. The TPU kernel padded with 3e18 rows, whose
@@ -103,6 +110,16 @@ centroid_assign_kernel(const float* __restrict__ feats,
   const int ty = t >> 5;
   const int row0 = blockIdx.y * kBM;
   const int col0 = blockIdx.x * kBN;
+
+  // this block's stream slot
+  const size_t z = blockIdx.z;
+  feats += z * B * D;
+  cents += z * M * D;
+  min_d2 += z * B;
+  argmin += z * B;
+  matched += z * B;
+  keys += z * B;
+  counts += z * gridDim.y;
 
   // loader roles: a float4 of one feature row, two of centroid rows
   const int ld_r = t >> 2;                   // 0..63
@@ -225,26 +242,40 @@ centroid_assign_kernel(const float* __restrict__ feats,
 
 }  // namespace
 
-// scratch: B 64-bit keys followed by ceil(B / 64) int counters, all set
-// here (keys to "none", counters to -1).
-extern "C" int centroid_assign_launch(const float* feats, const float* cents,
-                                      float* min_d2, int* argmin,
-                                      bool* matched, void* scratch, int B,
-                                      int M, int D, float t2, void* stream) {
+// S stream slots of one (B, M, D) problem each, slot-major: feats (S, B, D),
+// cents (S, M, D), outputs (S, B). scratch: S * B 64-bit keys followed by
+// S * ceil(B / 64) int counters, all set here (keys to "none", counters to
+// -1).
+extern "C" int centroid_assign_stacked_launch(
+    const float* feats, const float* cents, float* min_d2, int* argmin,
+    bool* matched, void* scratch, int S, int B, int M, int D, float t2,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int row_tiles = (B + kBM - 1) / kBM;
   auto* keys = static_cast<unsigned long long*>(scratch);
-  int* counts = reinterpret_cast<int*>(keys + B);
+  int* counts = reinterpret_cast<int*>(keys + (size_t)S * B);
   cudaError_t err = cudaMemsetAsync(
-      scratch, 0xFF, (size_t)B * sizeof(*keys) + row_tiles * sizeof(int), st);
+      scratch, 0xFF,
+      (size_t)S * B * sizeof(*keys) + (size_t)S * row_tiles * sizeof(int),
+      st);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((M + kBN - 1) / kBN, row_tiles);
+  const dim3 grid((M + kBN - 1) / kBN, row_tiles, S);
   centroid_assign_kernel<<<grid, kThreads, 0, st>>>(
       feats, cents, min_d2, argmin, matched, keys, counts, B, M, D, t2);
   return (int)cudaGetLastError();
 }
 
-// The grid the launcher uses, for a caller's check that it fills the card.
+// One slot: scratch holds B keys and ceil(B / 64) counters.
+extern "C" int centroid_assign_launch(const float* feats, const float* cents,
+                                      float* min_d2, int* argmin,
+                                      bool* matched, void* scratch, int B,
+                                      int M, int D, float t2, void* stream) {
+  return centroid_assign_stacked_launch(feats, cents, min_d2, argmin,
+                                        matched, scratch, 1, B, M, D, t2,
+                                        stream);
+}
+
+// The grid of one slot, for a caller's check that it fills the card.
 extern "C" int centroid_assign_blocks(int B, int M) {
   return ((M + kBN - 1) / kBN) * ((B + kBM - 1) / kBM);
 }

@@ -59,9 +59,9 @@ def _check_kernel_inputs(names: str, *ts: torch.Tensor):
         if t.data_ptr() % 16:
             raise ValueError(f"{names}: the kernel reads 16-byte vectors; "
                              f"the data must be 16-byte aligned")
-    if ts[0].shape[1] % 4:
+    if ts[0].shape[-1] % 4:
         raise ValueError(f"{names}: the kernel reads 16-byte vectors, so D "
-                         f"must be a multiple of 4, got {ts[0].shape[1]}")
+                         f"must be a multiple of 4, got {ts[0].shape[-1]}")
 
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
@@ -71,6 +71,39 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
 def _raise_on(err: int, name: str):
     if err:
         raise RuntimeError(f"{name} launch failed with cudaError {err}")
+
+
+def _assign_launch(feats: torch.Tensor, centroids: torch.Tensor, threshold,
+                   name: str):
+    """One ``centroid_assign`` launch over S slots: feats (S, B, D) against
+    centroids (S, M, D) -> (S, B) outputs; no launch when S * B == 0."""
+    _check_kernel_inputs(name, feats, centroids)
+    S, B, D = feats.shape
+    M = centroids.shape[1]
+    if M == 0:
+        raise ValueError(f"{name} needs at least one centroid")
+    dev = feats.device
+    min_d2 = torch.empty((S, B), dtype=torch.float32, device=dev)
+    arg = torch.empty((S, B), dtype=torch.int32, device=dev)
+    matched = torch.empty((S, B), dtype=torch.bool, device=dev)
+    if S * B:
+        if S > 65535:
+            raise ValueError(f"{name}: S = {S} exceeds the kernel's 65535 "
+                             f"blocks in z")
+        t2 = (np.float32(np.inf) if threshold is None
+              else np.float32(threshold) ** 2)          # squared in fp32
+        # the in-launch merge's per-row keys and per-row-tile counters
+        scratch = torch.empty((S * (8 * B + 4 * -(-B // CENTROID_ROWS)),),
+                              dtype=torch.uint8, device=dev)
+        err = build.load().centroid_assign_stacked_launch(
+            feats.data_ptr(), centroids.data_ptr(), min_d2.data_ptr(),
+            arg.data_ptr(), matched.data_ptr(), scratch.data_ptr(), S, B, M,
+            D, float(t2), _stream(dev))
+        _raise_on(err, name)
+        LAUNCHES["centroid_assign"] += 1
+    if threshold is None:
+        return min_d2, arg
+    return min_d2, arg, matched
 
 
 def centroid_assign(feats: torch.Tensor, centroids: torch.Tensor,
@@ -83,30 +116,35 @@ def centroid_assign(feats: torch.Tensor, centroids: torch.Tensor,
     _check_pair(feats, centroids, "feats/centroids")
     if feats.device.type == "cpu":
         return ref.centroid_assign_ref(feats, centroids, threshold)
-    _check_kernel_inputs("centroid_assign", feats, centroids)
-    B, D = feats.shape
-    M = centroids.shape[0]
-    if M == 0:
-        raise ValueError("centroid_assign needs at least one centroid")
-    dev = feats.device
-    min_d2 = torch.empty((B,), dtype=torch.float32, device=dev)
-    arg = torch.empty((B,), dtype=torch.int32, device=dev)
-    matched = torch.empty((B,), dtype=torch.bool, device=dev)
-    if B:
-        t2 = (np.float32(np.inf) if threshold is None
-              else np.float32(threshold) ** 2)          # squared in fp32
-        # the in-launch merge's per-row keys and per-row-tile counters
-        scratch = torch.empty((8 * B + 4 * -(-B // CENTROID_ROWS),),
-                              dtype=torch.uint8, device=dev)
-        err = build.load().centroid_assign_launch(
-            feats.data_ptr(), centroids.data_ptr(), min_d2.data_ptr(),
-            arg.data_ptr(), matched.data_ptr(), scratch.data_ptr(), B, M, D,
-            float(t2), _stream(dev))
-        _raise_on(err, "centroid_assign")
-        LAUNCHES["centroid_assign"] += 1
-    if threshold is None:
-        return min_d2, arg
-    return min_d2, arg, matched
+    out = _assign_launch(feats[None], centroids[None], threshold,
+                         "centroid_assign")
+    return tuple(x[0] for x in out)
+
+
+def centroid_assign_stacked(feats: torch.Tensor, centroids: torch.Tensor,
+                            threshold=None):
+    """(S, B, D), (S, M, D) -> (min_d2 (S, B) f32, argmin (S, B) i32[,
+    matched (S, B) bool]): S independent ``centroid_assign`` problems, one
+    per stream slot, feats[s] against centroids[s]. Every slot's outputs
+    are bitwise those of ``centroid_assign(feats[s], centroids[s])``: the
+    kernel runs each slot's body on the same tiles in the same order. One
+    launch (after one memset) per call with S * B > 0, counted once under
+    ``LAUNCHES["centroid_assign"]``."""
+    if feats.dim() != 3 or centroids.dim() != 3 \
+            or feats.shape[0] != centroids.shape[0] \
+            or feats.shape[2] != centroids.shape[2]:
+        raise ValueError(f"feats/centroids must be (S, B, D) and (S, M, D) "
+                         f"with one S and D, got {tuple(feats.shape)} and "
+                         f"{tuple(centroids.shape)}")
+    if feats.device != centroids.device:
+        raise ValueError(f"feats/centroids lie on {feats.device} and "
+                         f"{centroids.device}")
+    if feats.device.type == "cpu":
+        return ref.centroid_assign_stacked_ref(feats, centroids, threshold)
+    if feats.device.type != "cuda":
+        raise ValueError(f"unsupported device {feats.device}")
+    return _assign_launch(feats, centroids, threshold,
+                          "centroid_assign_stacked")
 
 
 @functools.lru_cache(maxsize=None)

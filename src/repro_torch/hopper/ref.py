@@ -11,7 +11,8 @@ order:
   kernel and the TPU kernel do; its ``f @ c.T`` sums in the matrix
   library's order and the kernel in one fmaf chain over D, so squared
   distances agree to a tolerance (the kernel scores equal centroids bit
-  for bit alike, so planted ties stay ties);
+  for bit alike, so planted ties stay ties); ``centroid_assign_stacked_ref``
+  is its loop over stream slots;
 * ``pixel_match_ref`` forms ``|a - b|`` in fp32 and sums it in fp64 before
   rounding the mean to fp32 once, as the CUDA kernel does (see
   ``csrc/pixel_diff.cu`` for why), in blocks bounded like the JAX
@@ -64,6 +65,22 @@ def centroid_assign_ref(feats: torch.Tensor, centroids: torch.Tensor,
     if threshold is None:
         return min_d2, j
     return min_d2, j, min_d2 <= threshold_sq(threshold).to(min_d2.device)
+
+
+def centroid_assign_stacked_ref(feats: torch.Tensor,
+                                centroids: torch.Tensor, threshold=None):
+    """feats (S, B, D), centroids (S, M, D) -> ``centroid_assign_ref`` of
+    each slot, stacked: (min_d2 (S, B), argmin (S, B)[, matched (S, B)])."""
+    S, B = feats.shape[:2]
+    if S == 0:
+        dev = feats.device
+        out = (torch.zeros((0, B), dtype=torch.float32, device=dev),
+               torch.zeros((0, B), dtype=torch.int32, device=dev),
+               torch.zeros((0, B), dtype=torch.bool, device=dev))
+        return out if threshold is not None else out[:2]
+    per_slot = [centroid_assign_ref(f, c, threshold)
+                for f, c in zip(feats, centroids)]
+    return tuple(torch.stack(x) for x in zip(*per_slot))
 
 
 def pixel_match_ref(a: torch.Tensor, b: torch.Tensor, threshold):

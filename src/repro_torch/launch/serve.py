@@ -50,6 +50,13 @@ candidates of all shards. Sealed shards are ranked on the card by the
 
   python -m repro_torch.launch.serve --stream jacksonh --duration 600 \\
       --fps 30 --archive /tmp/arch --stream-chunks 8
+
+With ``--mesh-devices N`` the streaming or archive ingest goes through a
+``ShardedIngestPipeline`` over ``launch.mesh.make_ingest_mesh(N)`` on
+``--device`` (the multi-stream stacked step, here with one stream's
+slot), running the model's tensor-level forward. On the card N is 1:
+ingest over more than one card is not built; ``--device cpu`` takes any
+N.
 """
 from __future__ import annotations
 
@@ -59,6 +66,7 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.common.config import CHEAP_CNNS
 from repro_torch.core.archive import ArchiveQueryEngine, ShardCatalog
@@ -67,9 +75,11 @@ from repro_torch.core.ingest import IngestConfig, ingest
 from repro_torch.core.params import select, sweep
 from repro_torch.core.query import (dominant_classes, gt_frames_by_class,
                                     precision_recall)
-from repro_torch.core.streaming import StreamingIngestor
+from repro_torch.core.pipeline import ShardedIngestPipeline
+from repro_torch.core.streaming import StreamingIngestor, StreamPlacement
 from repro_torch.data.video import get_stream, gt_oracle
 from repro_torch.launch import zoo
+from repro_torch.launch.mesh import make_ingest_mesh
 from repro_torch.models import cnn
 from repro_torch.serve import QueryService, ServiceConfig
 
@@ -115,14 +125,34 @@ def _round_line(tag, service, by_tenant, wall, gt_delta):
           f"{service.slo.percentile_s(99.0)*1e3:.1f}ms")
 
 
+def _mk_ingestor(apply_fn, flops, cfg, args, **kw) -> StreamingIngestor:
+    """The stream's ingestor: host-staged through ``apply_fn``, or with
+    ``--mesh-devices N`` bound to its slot of a ``ShardedIngestPipeline``
+    over an N-block ingest mesh on ``--device``, running
+    ``apply_fn.forward`` (the tensor-level forward)."""
+    if args.mesh_devices <= 0:
+        return StreamingIngestor(apply_fn, flops, cfg, device=args.device,
+                                 **kw)
+    mesh = make_ingest_mesh(args.mesh_devices, device=args.device)
+    if torch.device(args.device).index not in (None, mesh.devices[0].index):
+        raise SystemExit(f"--mesh-devices builds its mesh from "
+                         f"{mesh.devices[0]}, but the model runs on "
+                         f"--device {args.device}")
+    placement = StreamPlacement([args.stream], mesh.size)
+    shared = ShardedIngestPipeline(apply_fn.forward, mesh, placement.slots,
+                                   cfg=cfg)
+    return StreamingIngestor(
+        None, flops, cfg, pipeline=shared.handle(args.stream),
+        device=mesh.devices[placement.device_of(args.stream)], **kw)
+
+
 def _streaming_ingest(crops, frames, apply_fn, flops, cfg, class_kw,
                       workload, gt_apply, n_chunks, args):
     """Offer the stream's chunks to the service while tenants query
     between chunks from the live, still-growing index (query-while-
     ingest). Returns (index, stats, engine, service) — the engine's
     GT-label cache stays warm for the post-ingest query rounds."""
-    ing = StreamingIngestor(apply_fn, flops, cfg, device=args.device,
-                            **class_kw)
+    ing = _mk_ingestor(apply_fn, flops, cfg, args, **class_kw)
     engine = QueryEngine(ing.index, gt_apply=gt_apply,
                          gt_flops_per_image=zoo.GT_FLOPS)
     service = _mk_service(engine, args, ingestor=ing)
@@ -151,9 +181,8 @@ def _archive_ingest(crops, frames, apply_fn, flops, cfg, class_kw,
     across sealed shards + the live index through an
     ``ArchiveQueryEngine``. Returns (catalog, stats, engine, service)."""
     catalog = ShardCatalog.open(args.archive)
-    ing = StreamingIngestor(apply_fn, flops, cfg, catalog=catalog,
-                            shard_objects=args.shard_objects,
-                            device=args.device, **class_kw)
+    ing = _mk_ingestor(apply_fn, flops, cfg, args, catalog=catalog,
+                       shard_objects=args.shard_objects, **class_kw)
     cache_kw = ({"capacity": args.shard_cache} if args.shard_cache > 0
                 else {"capacity_bytes": args.shard_cache_mb << 20})
     engine = ArchiveQueryEngine(catalog, gt_apply=gt_apply, ingestor=ing,
@@ -242,9 +271,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--shard-cache-mb", type=int, default=256,
                     help="archive mode: LRU capacity in MiB of resident "
                          "shard heap state (ignored when --shard-cache > 0)")
+    ap.add_argument("--mesh-devices", type=int, default=0,
+                    help="ingest through the sharded multi-stream pipeline "
+                         "over an ingest mesh of N blocks on --device (0 = "
+                         "host-staged ingest); needs --stream-chunks or "
+                         "--archive; one card, any N on the CPU")
     ap.add_argument("--index-out", default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.mesh_devices > 0 and not (args.archive or args.stream_chunks > 0):
+        ap.error("--mesh-devices needs a streaming ingest path: pass "
+                 "--stream-chunks N and/or --archive DIR")
     if (args.K is None) != (args.T is None):
         ap.error("--K and --T override the selection together: give both "
                  "or neither")
@@ -315,7 +352,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         seed = args.seed if args.seed is not None else 0
         tree = (cnn.load_npz_params(args.weights) if args.weights
                 else cnn.init_params(mcfg, seed=seed))
-        apply_fn = cnn.make_apply(cnn.build(mcfg, tree, device=args.device))
+        model = cnn.build(mcfg, tree, device=args.device)
+        apply_fn = cnn.make_apply(model)
+        apply_fn.forward = cnn.make_forward(model)
         flops = mcfg.flops_per_image()
         cfg = IngestConfig(K=args.K, threshold=args.T)
         class_kw = {"n_local_classes": mcfg.n_classes}

@@ -62,6 +62,40 @@ def test_centroid_assign_matches_jax(B, M, D, T):
     np.testing.assert_array_equal(j.numpy(), got[1].numpy())
 
 
+@pytest.mark.parametrize("S,B,M,D,T", [
+    (1, 7, 13, 32, 7.0), (3, 64, 64, 128, 14.0), (4, 37, 300, 128, 15.5),
+])
+def test_centroid_assign_stacked_matches_jax_per_slot(S, B, M, D, T):
+    """The stacked plain version against the Pallas kernel run once per
+    slot, with a slot of dead rows (n = 0), an idle all-zero slot and
+    planted ties across centroid tiles."""
+    f, c = _normal((S, B, D), S * B + M), _normal((S, M, D), S * B + M + 1)
+    c[:, M // 2:2 * (M // 2)] = c[:, :M // 2]         # planted ties
+    c[0] = 1e9                                        # slot 0: n = 0
+    f[-1] = 0.0                                       # an idle slot
+    got = ops.centroid_assign_stacked(_t(f), _t(c), threshold=T)
+    assert all(x.shape == (S, B) for x in got)
+    for s in range(S):
+        _assert_assign_eq(tuple(x[s] for x in got),
+                          jops.centroid_assign(f[s], c[s], threshold=T))
+    d2, j = ops.centroid_assign_stacked(_t(f), _t(c))
+    np.testing.assert_array_equal(j.numpy(), got[1].numpy())
+
+
+def test_centroid_assign_stacked_shapes_and_errors():
+    got = ops.centroid_assign_stacked(torch.zeros(0, 5, 8),
+                                      torch.zeros(0, 3, 8), threshold=1.0)
+    assert [tuple(x.shape) for x in got] == [(0, 5)] * 3
+    for f, c in ((torch.zeros(2, 5, 8), torch.zeros(3, 4, 8)),
+                 (torch.zeros(2, 5, 8), torch.zeros(2, 4, 6)),
+                 (torch.zeros(5, 8), torch.zeros(4, 8))):
+        with pytest.raises(ValueError, match="\\(S, B, D\\)"):
+            ops.centroid_assign_stacked(f, c)
+    ops.reset_launches()
+    ops.centroid_assign_stacked(torch.ones(2, 4, 8), torch.zeros(2, 3, 8))
+    assert ops.LAUNCHES["centroid_assign"] == 0       # the CPU's plain path
+
+
 def _edge_inputs():
     """Exact-arithmetic edge cases: fp32 T^2, ties, dead slots."""
     t = np.float32(0.8)

@@ -118,6 +118,100 @@ def test_centroid_assign_kernel_fills_the_card_and_ties_at_zero(cuda):
     assert (j.cpu().numpy() == 0).all() and not m.cpu().numpy().any()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,B,M,D", [(8, 512, 4096, 128),
+                                     (8, 512, 2048, 128),
+                                     (3, 130, 333, 128),    # ragged B, M
+                                     (2, 9, 300, 20)])
+def test_centroid_assign_stacked_kernel_equals_solo_launches(cuda, S, B, M,
+                                                             D):
+    """One stacked launch gives every slot the bits of its own solo
+    launch, and the plain version's indices and matches; slot 0 has n = 0
+    (all rows dead), the last slot is idle (all-zero features), and the
+    tables hold ties across centroid tiles."""
+    r = np.random.default_rng(S * B + M)
+    f = r.normal(size=(S, B, D)).astype(np.float32)
+    c = r.normal(size=(S, M, D)).astype(np.float32)
+    c[:, M // 2:2 * (M // 2)] = c[:, :M // 2]
+    c[0] = 1e9
+    f[-1] = 0.0
+    T = float(np.sqrt(2 * D))
+    F, Cc = _t(f, cuda), _t(c, cuda)
+    before = ops.LAUNCHES["centroid_assign"]
+    got = ops.centroid_assign_stacked(F, Cc, threshold=T)
+    assert ops.LAUNCHES["centroid_assign"] == before + 1
+    for s in range(S):
+        solo = ops.centroid_assign(F[s], Cc[s], threshold=T)
+        for a, b in zip(got, solo):
+            assert torch.equal(a[s], b)
+        _assert_assign_eq(tuple(x[s] for x in got),
+                          ref.centroid_assign_ref(F[s], Cc[s], T))
+    assert (got[1][0] == 0).all() and not got[2][0].any()
+
+
+@pytest.mark.cuda
+def test_sharded_runner_on_the_card_equals_solo_pipelines(cuda):
+    """Three streams through one stacked pipeline on the card, with the
+    full cheap1 CNN and tables small enough to evict: each saves its solo
+    pipeline's bytes, counters and sink, with one centroid_assign and one
+    topk launch per stacked step (none per stream batch), so the stacked
+    unmatched tail scans each slot as its solo scan does."""
+    from repro_torch.common.config import CHEAP_CNNS
+    from repro_torch.core.ingest import IngestConfig
+    from repro_torch.core.pipeline import IngestPipeline
+    from repro_torch.core.streaming import (StreamingIngestor,
+                                            make_sharded_runner)
+    from repro_torch.data.video import get_stream
+    from repro_torch.launch.mesh import make_ingest_mesh
+    from repro_torch.models import cnn
+
+    names = ["jacksonh", "auburn_c", "cnn"]
+    streams = {nm: get_stream(nm, duration_s=20, fps=30).objects_array()[:2]
+               for nm in names}
+    mcfg = CHEAP_CNNS["cheap1"]
+    fwd = cnn.make_forward(cnn.build(mcfg, cnn.init_params(mcfg, 0), cuda))
+    # 8 clusters a table, so every stream evicts within its 20 s
+    cfg = IngestConfig(K=1000, threshold=0.4, batch_size=256,
+                       max_clusters=8)
+    got, want = {}, {}
+    runner = make_sharded_runner(
+        fwd, make_ingest_mesh(1), names, cfg=cfg,
+        topk_sink=lambda nm, o, v, i: got.setdefault(nm, []).append(
+            (o.copy(), i.copy())),
+        n_local_classes=1000)
+    before = dict(ops.LAUNCHES)
+    for half in (0, 1):
+        feeds = {}
+        for nm, (crops, frames) in streams.items():
+            cut = len(crops) // 2
+            sl = slice(0, cut) if half == 0 else slice(cut, None)
+            feeds[nm] = (crops[sl], frames[sl])
+        runner.feed(feeds)
+    out = runner.finish()
+    st = runner.pipeline.stats
+    assert ops.LAUNCHES["topk"] - before["topk"] == st.n_steps
+    assert ops.LAUNCHES["centroid_assign"] - before["centroid_assign"] \
+        == st.n_steps
+    assert st.n_batches > st.n_steps and st.n_dispatches <= 2 * st.n_steps
+    assert all(out[nm][1].n_evictions > 0 for nm in names)
+    for nm, (crops, frames) in streams.items():
+        sink = []
+        ing = StreamingIngestor(
+            None, 0.0, cfg, n_local_classes=1000,
+            pipeline=IngestPipeline(fwd, cfg, topk_sink=lambda o, v, i:
+                                    sink.append((o.copy(), i.copy()))))
+        cut = len(crops) // 2
+        ing.feed(crops[:cut], frames[:cut])
+        ing.feed(crops[cut:], frames[cut:])
+        index, stats = ing.finish()
+        assert out[nm][0].save_bytes() == index.save_bytes(), nm
+        assert vars(out[nm][1]) | {"wall_s": 0} == \
+            vars(stats) | {"wall_s": 0}, nm
+        for (go, gi), (wo, wi) in zip(got[nm], sink, strict=True):
+            np.testing.assert_array_equal(go, wo)
+            np.testing.assert_array_equal(gi, wi)
+
+
 def _ranges_pair(a, b, lo, hi, thr):
     before = ops.LAUNCHES["pixel_match"]
     m, d = ops.pixel_match_ranges(a, b, lo, hi, thr)
