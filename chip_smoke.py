@@ -93,7 +93,21 @@ Phases, each fatal on failure (no phase's failure is caught):
    KV-cache decode of 4 sequences (a 32-token prompt, then 32 greedy
    tokens); then, on the same weights in fp32, the two routes' prefill
    logits and ``decode_step`` against ``forward`` within 1e-4 of the
-   largest |logit|;
+   largest |logit|. Then LM training (``train_path``): olmo-1b at full
+   width and depth through ``repro_torch.launch.train``'s ``main``
+   (``--full --steps 20 --batch 8 --seq 2048 --microbatches 2``, bf16,
+   remat on): init s, the device ms/step (median of steps 3-20, the card
+   synchronised around each step), tokens/s, achieved TFLOP/s against
+   the step's bound from the code (``train_step_work``), peak memory,
+   one more step under the profiler (device time by kernel category,
+   idle share), the first and last loss finite and the last no higher;
+   all six launch counters read 0 after it (JAX's training path computes
+   attention on the einsum route). Then ``train_resume`` at olmo-1b's
+   width with 2 layers (bf16, 2 micro-batches, int8 error feedback):
+   the same 3 steps twice bitwise, 6 steps uninterrupted against 3 with
+   a checkpoint and a resumed run to 6, bitwise, a bf16 leaf restored
+   bitwise, a fake preemption at step 2 checkpointing and returning,
+   checkpoint write and restore times;
 4. card against CPU: the 120 s of frames through
    ``BackgroundSubtractor(device="cpu")`` give the card's boxes on every
    frame and its final background bit for bit; on a 60 s cut, spec1-spec3
@@ -113,7 +127,11 @@ Phases, each fatal on failure (no phase's failure is caught):
    identical top-K; the LM at olmo-1b's width with 2 layers in fp32 gives
    the CPU's prefill (flash route) and decode logits within 1e-4 of the
    largest |logit|, and the threefry draws of the cheap CNNs and of a
-   reduced LM are bitwise equal on the card and on the CPU;
+   reduced LM are bitwise equal on the card and on the CPU; the same
+   2-layer LM in fp32, trained 3 steps of 1 x 64 tokens from one init on
+   each device: the first step's gradients within 1e-5 of each leaf's
+   largest |grad|, the losses within 1e-5 relative, the parameters
+   within 2 lr per step (``train_card_vs_cpu_lm`` says why);
 5. where the ingest time goes: wall time per stage on a 120 s cut, for
    the override path's cheap1 (K=1000, T=0.4) and for the default path's
    chosen model at its K and T; then each path's ``pixel_match`` and
@@ -128,7 +146,8 @@ pixel differences rtol 1e-6; ``dequant_topk`` and ``topk`` values and
 indices exact; ``motion_gate``'s new background, tile means and hot mask
 bitwise; ``flash_attention`` fp32 atol = rtol = 2e-5 (the JAX package's
 own), bf16 one ulp: rtol 2**-7, atol 1e-4 (kernel and plain version each
-round one fp32 result to bf16 once).
+round one fp32 result to bf16 once); LM training on one device repeated
+and resumed bitwise, card against CPU as in phase 4.
 """
 from __future__ import annotations
 
@@ -165,6 +184,13 @@ LM_BATCH, LM_SEQ = 4, 2048
 DECODE_PROMPT, DECODE_NEW, DECODE_SLOTS = 32, 32, 2048
 # phase 4's card-against-CPU LM: olmo-1b's width with 2 layers
 LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_SEQ = 2, 2, 256
+# LM training: olmo-1b at full width and depth through the training
+# entry point (bf16, remat on, 2 micro-batches of 4 x 2048 tokens, 20 steps);
+# resume and preemption at full width with 2 layers; card against CPU
+# at full width with 2 layers in fp32, 3 steps of 1 x 64 tokens
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MB = 8, 2048, 20, 2
+RESUME_LAYERS, RESUME_BATCH, RESUME_SEQ = 2, 4, 512
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS = 1, 64, 3
 
 
 def emit(obj):
@@ -1914,6 +1940,270 @@ def lm_path(ops, peaks):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: LM training (the entry point at full width; resume, preemption)
+# ---------------------------------------------------------------------------
+
+def train_step_work(cfg, batch, seq):
+    """(bf16 tensor-core FLOP, fp32 FLOP) of one training step of
+    ``batch`` x ``seq`` tokens, from the code: the weight products run
+    forward, again under remat, and backward (two products), 8 FLOP per
+    weight and token; the tied head in fp32 (``_logits``; TF32 off), not
+    recomputed, 6 per weight and token; the QK^T einsum (fp32) and the PV
+    product (bf16) over the full masked S^2, each a product of 2 S^2 d
+    FLOP per sequence and layer, in 4 passes (forward, remat forward, and
+    the two products of the backward)."""
+    tokens = batch * seq
+    n_mat = 3 if cfg.mlp_act == "swiglu" else 2
+    weights = cfg.n_layers * (cfg._per_layer_attn()
+                              + n_mat * cfg.d_model * cfg.d_ff)
+    passes = 4 if cfg.remat else 3
+    per_pass = 2 * batch * seq * seq * cfg.n_heads * cfg.head_dim \
+        * cfg.n_layers
+    weight_flop = (passes * 2) * weights * tokens
+    head_flop = 6 * cfg.vocab_size * cfg.d_model * tokens
+    return (weight_flop + passes * per_pass,
+            head_flop + passes * per_pass)
+
+
+def _kernel_category(name: str) -> str:
+    """A device kernel's kind by its name. cuBLAS names its Hopper
+    tensor-core kernels ``nvjet_*`` without a dtype; with TF32 off, the
+    fp32 products run as ``*f32*``/``*sgemm*`` kernels on the FMA units."""
+    n = name.lower()
+    if "nvjet" in n or ("gemm" in n and "bf16" in n):
+        return "matmul_tensor_core"
+    if any(k in n for k in ("gemm", "xmma", "cutlass")):
+        return "matmul_fp32"
+    for cat, keys in (("softmax", ("softmax",)),
+                      ("reduce", ("reduce", "norm")),
+                      ("index", ("index", "scatter", "gather", "embedding")),
+                      ("cat_copy", ("cat", "copy", "memcpy", "memset")),
+                      ("elementwise", ("elementwise", "vectorized",
+                                       "unrolled"))):
+        if any(k in n for k in keys):
+            return cat
+    return "other"
+
+
+def step_profile(fn, step_s):
+    """One call of ``fn`` under ``torch.profiler`` (device activity only):
+    the device time by kernel category and the 12 costliest kernels, and
+    the device's idle share against ``step_s``, an unprofiled step's
+    synchronised wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0.0) > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    cats = {}
+    for e in events:
+        c = _kernel_category(e.key)
+        cats[c] = cats.get(c, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
+    return {"device_busy_ms": busy_ms,
+            "idle_share": max(0.0, 1.0 - busy_ms / (1e3 * step_s)),
+            "ms_by_category": dict(sorted(cats.items(),
+                                          key=lambda kv: -kv[1])),
+            "top_kernels": [{"name": e.key[:90], "calls": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def train_path(ops, peaks):
+    """olmo-1b trained on the card through ``repro_torch.launch.train``'s
+    ``main`` at full width and depth (``TRAIN_STEPS`` steps of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens in ``TRAIN_MB`` micro-batches,
+    bf16, remat on). ``make_train_step`` is wrapped so that each step runs
+    between two synchronisations of the card: the device ms/step is the
+    median of steps 3 to ``TRAIN_STEPS``, apart from the loop's own host
+    ``step_time_s``; ``transformer.init`` is timed likewise. The launch
+    counters are zeroed before and must all read 0 after: the training
+    path computes attention on the einsum route, as the JAX package's
+    ``loss_fn`` does, so it launches none of the six kernels. After the
+    run, one more step on the last step's arguments runs under the
+    profiler (``step_profile``) for the breakdown."""
+    import math
+    import statistics
+    import torch
+    from repro_torch.launch import train as launch
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_loop
+
+    cfg = lm_config()
+    walls, init_s, last = [], [], {}
+    make, init = train_loop.make_train_step, T.init
+
+    def synced(fn, out, keep=False):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+            if keep:                     # the step to profile afterwards
+                last.update(fn=fn, args=a)
+            return r
+        return wrapper
+
+    argv = ["--arch", LM_ARCH, "--full", "--steps", str(TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--microbatches", str(TRAIN_MB), "--device", "cuda"]
+    train_loop.make_train_step = lambda *a, **k: synced(make(*a, **k),
+                                                        walls, keep=True)
+    T.init = synced(init, init_s)
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        report = launch.main(argv)
+    finally:
+        train_loop.make_train_step, T.init = make, init
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(sum(launches.values()) == 0,
+          f"the training path launched a kernel: {launches}")
+    check(len(walls) == TRAIN_STEPS, f"{len(walls)} timed steps")
+    hist = report["history"]
+    first, last_loss = hist[0]["loss"], hist[-1]["loss"]
+    check(hist[0]["step"] == 1 and hist[-1]["step"] == TRAIN_STEPS
+          and math.isfinite(first) and math.isfinite(last_loss)
+          and last_loss <= first, f"training losses {first} -> {last_loss}")
+    med = statistics.median(walls[2:])
+    profiled = step_profile(lambda: last["fn"](*last["args"]), med)
+    last.clear()
+    torch.cuda.empty_cache()
+    bf16_flop, fp32_flop = train_step_work(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    bound_s = bf16_flop / peaks["bf16_tc"] + fp32_flop / peaks["fp32"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    return {
+        "argv": argv, "arch": cfg.name, "params": report["params"],
+        "dtype": cfg.dtype, "remat": cfg.remat,
+        "remat_policy": cfg.remat_policy, "init_s": init_s[0],
+        "device_ms_per_step": 1e3 * med,
+        "device_ms_per_step_all": [1e3 * w for w in walls],
+        "host_step_time_ms": [1e3 * h["step_time_s"] for h in hist],
+        "tokens_per_step": tokens, "tokens_per_s": tokens / med,
+        "bf16_tflop_per_step": bf16_flop / 1e12,
+        "fp32_tflop_per_step": fp32_flop / 1e12,
+        "achieved_tflop_per_s": (bf16_flop + fp32_flop) / med / 1e12,
+        "bound_ms_per_step": 1e3 * bound_s, "bound_by": "operations",
+        "bound_share": bound_s / med,
+        "peak_memory_gb": peak / 1e9,
+        "losses": [(h["step"], h["loss"]) for h in hist],
+        "first_loss": first, "last_loss": last_loss, "launches": launches,
+        "profiled_step": profiled,
+    }
+
+
+class FakePreemption:
+    """A ``PreemptionHandler`` that installs nothing; the hook of
+    ``train_resume`` sets ``triggered`` at a chosen step."""
+    last = None
+
+    def __init__(self, *a, **k):
+        self.triggered = False
+        FakePreemption.last = self
+
+    def restore(self):
+        pass
+
+
+def train_resume():
+    """olmo-1b's width with ``RESUME_LAYERS`` layers, bf16, 2 micro-batches
+    and int8 error feedback, in a temporary directory: the same 3 steps
+    twice give the same parameters (the card is deterministic here, which
+    the next check needs); 6 steps uninterrupted against 3 steps with
+    ``ckpt_every=3`` and a fresh ``train(..., resume=True)`` to 6: equal
+    parameters, bit for bit; a bf16 leaf restored bit for bit; a fake
+    preemption at step 2 writes a ``preempted`` checkpoint and returns.
+    Then the restore and the write of one checkpoint are timed."""
+    import torch
+    from repro_torch.launch.train import lm_data
+    from repro_torch.models import transformer as T
+    from repro_torch.train import CheckpointManager, OptConfig, TrainConfig
+    from repro_torch.train import train_loop
+    from repro_torch.train.train_loop import param_leaves, train
+
+    cfg = lm_config(n_layers=RESUME_LAYERS)
+    ocfg = OptConfig(lr=1e-3, warmup_steps=1, total_steps=6)
+
+    def run(steps, ckpt=None, hooks=(), **kw):
+        params = T.init(cfg, seed=0, device="cuda")
+        return train(lambda p, b: T.loss_fn(p, b["tokens"], b["labels"],
+                                            cfg),
+                     params, lm_data(cfg, RESUME_BATCH, RESUME_SEQ,
+                                     device="cuda"),
+                     ocfg, TrainConfig(steps=steps, log_every=1,
+                                       n_microbatches=2,
+                                       compression="int8_ef", **kw),
+                     ckpt=ckpt, hooks=hooks)
+
+    def equal(a, b):
+        return all(torch.equal(x, y) for x, y in zip(param_leaves(a),
+                                                     param_leaves(b)))
+
+    repeat = equal(run(3)[0], run(3)[0])
+    check(repeat, "the same 3 training steps gave other parameters")
+    want, whist = run(6)
+    n_params = sum(x.numel() for x in param_leaves(want))
+    out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": n_params, "batch": RESUME_BATCH, "seq": RESUME_SEQ,
+           "repeat_bitwise": repeat}
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = CheckpointManager(os.path.join(d, "resume"), keep=2)
+        run(3, ckpt, ckpt_every=3)
+        check(ckpt.all_steps() == [3], f"checkpoints {ckpt.all_steps()}")
+        got, hist = run(6, ckpt)
+        check([h["step"] for h in hist] == [4, 5, 6]
+              and [h["loss"] for h in hist]
+              == [h["loss"] for h in whist[3:]],
+              "the resumed run's losses differ from the uninterrupted's")
+        check(equal(got, want), "resume from step 3 differs from 6 steps "
+              "uninterrupted")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, tree, extra = ckpt.restore(device="cuda")
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        emb = tree[0]["tok_embed"]
+        check(step == 6 and emb.dtype == torch.bfloat16
+              and torch.equal(emb.view(torch.int16),
+                              got["tok_embed"].view(torch.int16)),
+              "the bf16 embedding did not restore bit for bit")
+        t0 = time.perf_counter()
+        ckpt.save(7, tree, extra=extra)
+        ckpt.wait()
+        out["write_s"] = time.perf_counter() - t0
+        out["checkpoint_gb"] = os.path.getsize(os.path.join(
+            ckpt.dir, "step_00000007", "leaves.npz")) / 1e9
+        del tree, emb
+
+        handler = train_loop.PreemptionHandler
+        train_loop.PreemptionHandler = FakePreemption
+        try:
+            pre = CheckpointManager(os.path.join(d, "preempt"))
+
+            def preempt_at_2(m):
+                if m["step"] == 2:
+                    FakePreemption.last.triggered = True
+
+            _, phist = run(6, pre, hooks=[preempt_at_2])
+        finally:
+            train_loop.PreemptionHandler = handler
+        step, _, extra = pre.restore(device="cpu")
+        check(step == 2 and extra.get("preempted") is True
+              and phist[-1]["step"] == 2,
+              f"preemption: checkpoint {step} {extra}")
+    out.update(resume_bitwise=True, resumed_steps=[4, 5, 6],
+               preempted_at=2, losses=[h["loss"] for h in whist])
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: card against CPU
 # ---------------------------------------------------------------------------
 
@@ -1974,6 +2264,78 @@ def lm_card_vs_cpu():
             "batch": LM_CPU_BATCH, "seq": LM_CPU_SEQ, "decode_steps": n,
             "prefill_rel": prefill_rel, "decode_rel": decode_rel,
             "init_draws_bitwise": [c.name for c in cnn_cfgs] + [small.name]}
+
+
+def train_card_vs_cpu_lm():
+    """olmo-1b's width with ``LM_CPU_LAYERS`` layers in fp32 (remat on),
+    one init drawn on the card and copied to the CPU, the same batches of
+    ``TRAIN_CPU_BATCH`` x ``TRAIN_CPU_SEQ`` tokens: the first step's
+    gradients within 1e-5 of each leaf's largest |grad|, and
+    ``TRAIN_CPU_STEPS`` steps of ``train`` on each device with losses
+    within 1e-5 relative and parameters within 2 lr per step. Why that
+    bound: over the first three steps of AdamW with b1 = 0.9 and b2 =
+    0.95, |m^ / sqrt(v^)| <= 1.001 for any gradients (Cauchy-Schwarz over
+    the moments' weights), so an element whose gradient is near zero and
+    takes the other sign on one device moves by up to 2 lr per step;
+    every other element agrees to fp32 rounding."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.train import lm_data
+    from repro_torch.models import transformer as T
+    from repro_torch.train import OptConfig, TrainConfig
+    from repro_torch.train.train_loop import param_leaves, train
+
+    cfg = lm_config(n_layers=LM_CPU_LAYERS, dtype="float32")
+    card = T.init(cfg, seed=0, device="cuda")
+    cpu = T.tree_map(lambda x: x.to("cpu", copy=True), card)
+    data = {d: lm_data(cfg, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, device=d)
+            for d in ("cuda", "cpu")}
+
+    def loss(p, b):
+        return T.loss_fn(p, b["tokens"], b["labels"], cfg)
+
+    b = next(lm_data(cfg, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, device="cpu"))
+    grads = {}
+    for d, p in (("cuda", card), ("cpu", cpu)):
+        leaves = param_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        l, _ = loss(p, {k: v.to(leaves[0].device) for k, v in b.items()})
+        grads[d] = [g.cpu() for g in torch.autograd.grad(l, leaves)]
+        for t in leaves:
+            t.requires_grad_(False)
+    grad_rel = max(float((a - c).abs().max() / c.abs().max())
+                   for a, c in zip(grads["cuda"], grads["cpu"]))
+    check(grad_rel <= 1e-5, f"first-step gradients card vs CPU: {grad_rel}")
+    lr = 1e-3
+    ocfg = OptConfig(lr=lr, warmup_steps=1, total_steps=TRAIN_CPU_STEPS)
+    tcfg = TrainConfig(steps=TRAIN_CPU_STEPS, log_every=1)
+    (card, hc), (cpu, hp) = (train(loss, p, data[d], ocfg, tcfg)
+                             for d, p in (("cuda", card), ("cpu", cpu)))
+    loss_rel = max(abs(a["loss"] - c["loss"]) / abs(c["loss"])
+                   for a, c in zip(hc, hp))
+    check(len(hc) == len(hp) == TRAIN_CPU_STEPS and loss_rel <= 1e-5,
+          f"training losses card vs CPU: {loss_rel}")
+    diffs = [(a.cpu() - c).abs() for a, c in zip(param_leaves(card),
+                                                  param_leaves(cpu))]
+    param_max = max(float(x.max()) for x in diffs)
+    bound = 2 * lr * TRAIN_CPU_STEPS
+    check(param_max <= bound, f"parameters card vs CPU: {param_max} > "
+          f"{bound}")
+    n = sum(x.numel() for x in diffs)
+    over = sum(int((x > 1e-6).sum()) for x in diffs)
+    del card, cpu, grads
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "d_model": cfg.d_model,
+            "dtype": cfg.dtype, "batch": TRAIN_CPU_BATCH,
+            "seq": TRAIN_CPU_SEQ, "steps": TRAIN_CPU_STEPS,
+            "first_step_grad_rel": grad_rel, "loss_rel": loss_rel,
+            "losses_card": [h["loss"] for h in hc],
+            "losses_cpu": [h["loss"] for h in hp],
+            "param_max_abs_diff": param_max, "param_bound": bound,
+            "param_share_over_1e-6": over / n,
+            "param_median_abs_diff": float(np.median(
+                torch.cat([x.flatten() for x in diffs]).numpy()))}
 
 
 def _flat_tree(tree):
@@ -2745,13 +3107,20 @@ def main():
     lm = lm_path(ops, peaks)
     emit({"phase": "lm_path", "gpu": smi, **lm, "elapsed_s": elapsed()})
     fa["launches"] = lm["launches"]["flash_attention"]
+    trained = train_path(ops, peaks)
+    emit({"phase": "train_path", "gpu": smi, **trained,
+          "elapsed_s": elapsed()})
+    for entry in (ca, pm, dq, tk, mg, fa):
+        entry["launches_train_path"] = trained["launches"][entry["name"]]
+    emit({"phase": "train_resume", "gpu": smi, **train_resume(),
+          "elapsed_s": elapsed()})
 
     # -- phase 4: card against CPU --------------------------------------------
     emit({"phase": "card_vs_cpu", **card_vs_cpu(serve_args),
           "bgsub": bgsub_card_vs_cpu(gate_boxes, gate_bg),
           "selection": selection_card_vs_cpu(),
           "training": train_card_vs_cpu(), "lm": lm_card_vs_cpu(),
-          "elapsed_s": elapsed()})
+          "lm_training": train_card_vs_cpu_lm(), "elapsed_s": elapsed()})
     override = cnn.make_apply(cnn.build(mcfg, cnn.init_params(mcfg, 0), dev))
     override_cfg = IngestConfig(K=serve_args["K"], threshold=serve_args["T"])
     emit({"phase": "breakdown", "gpu": smi,

@@ -34,12 +34,16 @@ class ShapeCell:
 class LMConfig:
     """A decoder-only LM, field for field the JAX package's ``LMConfig``.
 
-    The fields that only lay the model out over a TPU mesh or schedule its
-    training (``act_sharding``, ``parallelism``, ``grad_reduce_dtype``,
-    ``remat``, ``remat_policy``, ``scan_layers``, ``train_microbatches``,
-    ``prefill_batch_chunks``) are kept so configs copy verbatim; one card
-    ignores them. The MoE fields describe models whose slice is still to
-    come: ``models.transformer`` raises on ``moe=True``.
+    ``remat`` and ``remat_policy`` hold: ``models.transformer.forward``
+    checkpoints each layer's activations when gradients are wanted
+    (``"nothing"`` only; ``models.layers.remat_policy``). The fields that
+    only lay the model out over a TPU mesh or schedule its training
+    (``act_sharding``, ``parallelism``, ``grad_reduce_dtype``,
+    ``scan_layers``, ``train_microbatches``, ``prefill_batch_chunks``)
+    are kept so configs copy verbatim; one card ignores them (the train
+    loop takes its micro-batches from ``TrainConfig``, as the JAX
+    package's does). The MoE fields describe models whose slice is still
+    to come: ``models.transformer`` raises on ``moe=True``.
     """
 
     name: str

@@ -13,7 +13,10 @@ computed once per pipeline, never per step.
 
 The parameter-sharding half of the JAX module (``spec_for_param``,
 ``param_shardings``, ``batch_spec``, ``act_spec``, ``constrain``), which
-belongs to LM training, has no counterpart yet.
+lays LM training out over many devices, has no counterpart yet; nor have
+the pieces of training that need it: ``compressed_psum`` (an int8 psum
+over a named mesh axis) and ``choose_mesh``/``reshard`` (ROADMAP A14).
+One card trains unsharded (``train/``).
 """
 from __future__ import annotations
 

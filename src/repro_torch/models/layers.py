@@ -8,7 +8,8 @@ parameters are dictionaries of tensors shaped as the JAX tree (dense
 weights (d_in, d_out), applied as ``x @ w``), activations (B, S, D), heads
 (B, S, H, dh). ``*_init`` draws through ``common.prng`` exactly as the JAX
 package draws through ``jax.random``. Left out: the mesh constraints (one
-card), remat policies, MoE and the vision primitives.
+card), the remat policies that save matrix products (``remat_policy``
+raises on them), MoE and the vision primitives.
 
 Matrix products stay ``torch.matmul``/``einsum``, as the JAX package
 leaves them to XLA; the one kernel of this module's path is
@@ -30,6 +31,22 @@ from repro_torch.hopper import ops
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def remat_policy(name: str):
+    """The activation-checkpoint policy of ``cfg.remat_policy``, as the
+    JAX package names them. ``"nothing"`` (every LM config's) saves only
+    each layer's input and recomputes the rest: ``None``, i.e. a plain
+    ``torch.utils.checkpoint.checkpoint`` around the layer. The policies
+    that also save matrix products (``"dots"``, ``"dots_nobatch"``) are
+    not ported yet (ROADMAP A14)."""
+    if name == "nothing":
+        return None
+    if name in ("dots", "dots_nobatch"):
+        raise NotImplementedError(
+            f"remat_policy {name!r} is not ported yet (ROADMAP A14); "
+            f"use 'nothing'")
+    raise ValueError(name)
 
 
 def compute_dtype(name: str) -> torch.dtype:

@@ -12,8 +12,12 @@ leading L axis), as a dictionary of tensors:
 ``common.prng``; ``params_from_jax``/``params_to_jax`` convert trees of
 numpy arrays. The layers run one after another (the JAX package's
 ``scan`` over the stacked axis, or its unrolled loop, compute the same);
-there is no mesh, remat or micro-batching on one card. MoE configs raise:
-their slice is still to come.
+there is no mesh on one card. ``loss_fn`` is the training objective;
+when gradients are wanted, ``cfg.remat`` wraps each layer in an
+activation checkpoint (its input saved, the rest recomputed in the
+backward pass), as the JAX package's ``jax.checkpoint`` does; serving
+runs without one. Micro-batches belong to ``train.train_loop``. MoE
+configs raise: their slice is still to come.
 
 ``attn_impl`` picks the attention of ``forward``/``prefill``: ``"einsum"``
 (the default, what the JAX package's LM computes) or ``"flash"``, the
@@ -26,6 +30,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import prng
 from repro_torch.common.config import LMConfig
@@ -78,10 +83,21 @@ def _stack(trees: list) -> dict:
     return torch.stack(trees)
 
 
-def _index(tree, i: int):
+def _unstack(tree: dict, n: int) -> list:
+    """The stacked layer tree as ``n`` per-layer trees of views. One
+    ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where indexing each layer would add a full-size zero gradient per
+    layer."""
     if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
 
 
 def tree_map(fn, tree: dict) -> dict:
@@ -153,13 +169,41 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
     S = tokens.shape[1]
     x = params["tok_embed"][tokens].to(dt)
     positions = torch.arange(S, device=tokens.device)[None, :]
-    for i in range(cfg.n_layers):
-        x = _layer(cfg, _index(params["layers"], i), x, positions, attn_impl)
+    remat = (cfg.remat and torch.is_grad_enabled()
+             and any(t.requires_grad for t in _leaves(params)))
+    if remat:
+        L.remat_policy(cfg.remat_policy)     # "nothing": save layer inputs
+    for p in _unstack(params["layers"], cfg.n_layers):
+        if remat:
+            # the layers draw no random numbers: no RNG state to replay
+            x = checkpoint(_layer, cfg, p, x, positions, attn_impl,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _layer(cfg, p, x, positions, attn_impl)
     x = L.apply_norm(cfg.norm, params["final_ln"], x)
     if last_logit_only:
         x = x[:, -1:, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(params, x, cfg), aux
+
+
+def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: LMConfig, aux_weight: float = 0.01):
+    """Mean next-token cross-entropy of ``forward``'s fp32 logits plus
+    ``aux_weight`` times its aux loss: ``(loss, {"nll", "aux"})``, the
+    metrics detached.
+
+    The JAX package picks each label's logit by contracting a one-hot
+    over V, so that a vocabulary sharded over its "model" axis is not
+    all-gathered. On one card a gather picks the same number (the
+    one-hot sum adds only zeros to it, for finite logits) and saves the
+    (B, S, V) fp32 one-hot: 3.3 GB at 8 x 2048 tokens of olmo-1b."""
+    logits, aux = forward(params, tokens, cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = (lse - picked).mean()
+    loss = nll + aux_weight * aux
+    return loss, {"nll": nll.detach(), "aux": aux.detach()}
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: LMConfig,
@@ -191,8 +235,7 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
     _check(cfg)
     dt = L.compute_dtype(cfg.dtype)
     x = params["tok_embed"][token].to(dt)
-    for i in range(cfg.n_layers):
-        p = _index(params["layers"], i)
+    for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
         h = L.apply_norm(cfg.norm, p["ln1"], x)
         h, _, _ = L.decode_attention(
             p["attn"], h, cache["k"][i], cache["v"][i], cache_len,

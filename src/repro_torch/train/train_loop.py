@@ -1,77 +1,215 @@
-"""The training loop the specialized cheap CNNs use (paper §4.3).
+"""The train loop on one card: gradient accumulation over micro-batches,
+gradient compression, checkpoint and restart, preemption handling. A
+port of ``repro.train.train_loop``, which both the specialized cheap
+CNNs (paper §4.3) and the decoder LM run.
 
-A port of the part of ``repro.train.train_loop.train`` that
-``core.specialize`` runs: one micro-batch per step, no gradient
-compression, no checkpoint and no preemption handling. Any other
-``TrainConfig`` value raises ``NotImplementedError``; those parts come
-with the backbone training slice.
+``loss_fn(params, batch) -> (loss, metrics)`` is the model contract
+(the reference's ``loss_fn(params, batch, rng)``: no model of the port
+draws random numbers in its loss, so there is no rng; ``TrainConfig.seed``
+is kept so configs copy verbatim). ``params`` is an ``nn.Module`` (the
+cheap CNN) or a tree of tensors (the LM's parameter dictionary); the loop
+updates its tensors in place and returns it. ``batch`` is a dict of
+tensors with a leading batch axis, on the parameters' device.
 
-``loss_fn(model, batch) -> (loss, metrics)`` is the model contract
-(the reference's ``loss_fn(params, batch, rng)``: the cheap CNN draws no
-random numbers, so there is no rng and no ``TrainConfig.seed``);
-``batch`` is a dict of tensors on the model's device.
+The step runs in the JAX package's order: the batch split contiguously
+into ``n_microbatches`` parts, each part's gradients added to an fp32
+accumulator, the sum and the summed loss divided by the count, the last
+part's metrics kept; then the compression, then ``optimizer.update`` (in
+place). A module's parameters are its ``parameters()``; a tree's leaves
+are flattened as ``train.checkpoint`` flattens them (dict keys sorted),
+so a checkpoint's leaves are the JAX package's for the same tree.
 """
 from __future__ import annotations
 
-import time
+import contextlib
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.train import compression as comp
 from repro_torch.train import optimizer as opt
+from repro_torch.train.checkpoint import CheckpointManager, flatten
+from repro_torch.train.elastic import PreemptionHandler, StepTimer
 
 
 @dataclass(frozen=True)
 class TrainConfig:
     steps: int = 300
     log_every: int = 50
-    ckpt_every: int = 0                 # 0 = no periodic checkpoint
+    ckpt_every: int = 0                 # 0 = only on preemption/final
     n_microbatches: int = 1             # grad accumulation
     compression: str = "none"           # none | bf16 | int8_ef
+    seed: int = 0
 
 
-def _check_supported(cfg: TrainConfig):
-    unsupported = {k: v for k, v in (("ckpt_every", cfg.ckpt_every),
-                                     ("n_microbatches", cfg.n_microbatches),
-                                     ("compression", cfg.compression))
-                   if v != getattr(TrainConfig, k)}
-    if unsupported:
-        raise NotImplementedError(
-            f"TrainConfig {unsupported}: the port's training loop runs one "
-            f"micro-batch per step, without compression or checkpoints")
+def param_leaves(params) -> List[torch.Tensor]:
+    """The tensors the loop trains: a module's ``parameters()``, or a
+    tree's leaves in the JAX package's order."""
+    if isinstance(params, nn.Module):
+        return list(params.parameters())
+    return flatten(params)[0]
 
 
-def train(loss_fn: Callable[[nn.Module, Dict[str, Any]],
-                            Tuple[torch.Tensor, Dict[str, torch.Tensor]]],
-          model: nn.Module, data_iter: Iterator[Dict[str, Any]],
+def state_tree(params, opt_state: dict, ef_state) -> tuple:
+    """What the loop checkpoints: (params, optimizer state, error-feedback
+    state), laid out as the JAX package's loop lays it out (the moments
+    in parameter order, ``step`` an int32 scalar), so the checkpoint's
+    leaves are the JAX package's."""
+    p = list(params.parameters()) if isinstance(params, nn.Module) \
+        else params
+    return (p, {"m": opt_state["m"], "step": np.int32(opt_state["step"]),
+                "v": opt_state["v"]}, ef_state)
+
+
+@contextlib.contextmanager
+def _requiring_grad(leaves: List[torch.Tensor]):
+    """The leaves marked as requiring gradients inside the block, their
+    own flags restored after it."""
+    flags = [t.requires_grad for t in leaves]
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        yield
+    finally:
+        for t, f in zip(leaves, flags):
+            t.requires_grad_(f)
+
+
+def _microbatch(batch: Dict[str, Any], i: int, n: int) -> Dict[str, Any]:
+    """Part ``i`` of ``n`` of the batch's leading axis, contiguous."""
+    def part(x):
+        if isinstance(x, dict):
+            return {k: part(v) for k, v in x.items()}
+        b = x.shape[0] // n
+        return x[i * b:(i + 1) * b]
+    return part(batch)
+
+
+def make_train_step(loss_fn: Callable, opt_cfg: opt.OptConfig,
+                    train_cfg: TrainConfig) -> Callable:
+    """``step(params, opt_state, ef_state, batch) -> (params, opt_state,
+    ef_state, metrics)``. ``opt_state`` is ``optimizer.init`` of
+    ``param_leaves(params)``; ``ef_state`` is
+    ``compression.init_ef_state`` of them under ``int8_ef``, else 0. The
+    parameters and ``opt_state`` are updated in place. ``metrics`` holds
+    ``loss_fn``'s metrics, ``loss``, ``lr`` and ``grad_norm``, as tensors
+    on the device (``lr`` a float)."""
+    n_mb = train_cfg.n_microbatches
+
+    def grads_of(params, leaves, batch):
+        loss, metrics = loss_fn(params, batch)
+        return loss.detach(), metrics, torch.autograd.grad(loss, leaves)
+
+    def step(params, opt_state, ef_state, batch):
+        leaves = param_leaves(params)
+        with _requiring_grad(leaves):
+            if n_mb > 1:
+                grads = [torch.zeros_like(p, dtype=torch.float32)
+                         for p in leaves]
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=leaves[0].device)
+                for i in range(n_mb):
+                    l, metrics, g = grads_of(params, leaves,
+                                             _microbatch(batch, i, n_mb))
+                    for a, b in zip(grads, g):
+                        a.add_(b)
+                    loss = loss + l.float()
+                    del g
+                for g in grads:
+                    g.div_(n_mb)
+                loss = loss / n_mb
+            else:
+                loss, metrics, grads = grads_of(params, leaves, batch)
+
+        if train_cfg.compression == "bf16":
+            grads = comp.cast_bf16(grads)
+        elif train_cfg.compression == "int8_ef":
+            grads, ef_state = comp.apply_ef(grads, ef_state)
+
+        om = opt.update(leaves, grads, opt_state, opt_cfg)
+        return params, opt_state, ef_state, dict(metrics, loss=loss, **om)
+
+    return step
+
+
+def train(loss_fn: Callable, params, data_iter: Iterator[Dict[str, Any]],
           opt_cfg: opt.OptConfig, train_cfg: TrainConfig,
-          ) -> Tuple[nn.Module, List[dict]]:
-    """Run ``train_cfg.steps`` AdamW steps on ``model``'s parameters in
-    place; returns ``(model, history)``.
+          ckpt: Optional[CheckpointManager] = None, resume: bool = True,
+          hooks=()) -> Tuple[Any, List[dict]]:
+    """Run the loop to ``train_cfg.steps``; returns ``(params, history)``.
 
-    ``history`` holds one entry at the first step and one every
-    ``log_every`` steps: ``loss``, ``nll``, ``acc``, ``lr``,
+    ``history`` holds one entry at the first step run and one every
+    ``log_every`` steps: ``loss_fn``'s metrics, ``loss``, ``lr``,
     ``grad_norm``, ``step`` (1-based) and ``step_time_s``, the host time
-    to issue the step (on the card the step runs asynchronously). Only
-    logged steps read the loss and metrics back to the host.
+    to issue the step (``StepTimer``; on the card the step runs
+    asynchronously). Only logged steps read values back to the host;
+    each entry goes to every hook.
+
+    Fault tolerance: with ``ckpt`` and ``resume``, the newest checkpoint's
+    parameters (copied into ``params``), optimizer and error-feedback
+    state are restored and its ``batches_consumed`` batches of
+    ``data_iter`` replayed. A SIGTERM checkpoints at the next step's end
+    (``preempted`` in its extras) and returns; ``ckpt_every`` saves
+    periodically, and the last step is saved when ``train`` returns (the
+    JAX package's loop saves it again when ``ckpt_every`` just did, and
+    re-labels a restored state as ``steps`` when no step was left). The
+    earlier SIGTERM handler is back in place when ``train`` returns.
     """
-    _check_supported(train_cfg)
-    params = list(model.parameters())
-    state = opt.init(params)
+    step_fn = make_train_step(loss_fn, opt_cfg, train_cfg)
+    leaves = param_leaves(params)
+    int8_ef = train_cfg.compression == "int8_ef"
+    start_step = 0
+    if ckpt is not None and resume and ckpt.latest_step() is not None:
+        start_step, (p, o, e), extra = ckpt.restore(
+            device=leaves[0].device)
+        with torch.no_grad():
+            for t, r in zip(leaves, flatten(p)[0]):
+                t.copy_(r)
+        opt_state = {"m": o["m"], "v": o["v"], "step": int(o["step"])}
+        ef_state = e if int8_ef else 0
+        for _ in range(int(extra.get("batches_consumed", start_step))):
+            next(data_iter)                      # replay iterator position
+    else:
+        opt_state = opt.init(leaves)
+        ef_state = comp.init_ef_state(leaves) if int8_ef else 0
+
+    preempt = PreemptionHandler()
+    timer = StepTimer()
     history: List[dict] = []
-    for step in range(train_cfg.steps):
-        batch = next(data_iter)
-        t0 = time.perf_counter()
-        loss, metrics = loss_fn(model, batch)
-        grads = torch.autograd.grad(loss, params)
-        om = opt.update(params, grads, state, opt_cfg)
-        dt = time.perf_counter() - t0
-        if (step + 1) % train_cfg.log_every == 0 or step == 0:
-            m = {k: float(v) for k, v in {**metrics, "loss": loss.detach(),
-                                          **om}.items()}
-            m["step"] = step + 1
-            m["step_time_s"] = dt
-            history.append(m)
-    return model, history
+    saved = start_step                  # the step of the newest checkpoint
+    try:
+        for step in range(start_step, train_cfg.steps):
+            batch = next(data_iter)
+            with timer.measure():
+                params, opt_state, ef_state, metrics = step_fn(
+                    params, opt_state, ef_state, batch)
+            if (step + 1) % train_cfg.log_every == 0 or step == start_step:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["step"] = step + 1
+                m["step_time_s"] = timer.last
+                history.append(m)
+                for h in hooks:
+                    h(m)
+            if ckpt is not None and (
+                    preempt.triggered
+                    or (train_cfg.ckpt_every
+                        and (step + 1) % train_cfg.ckpt_every == 0)):
+                ckpt.save(step + 1, state_tree(params, opt_state, ef_state),
+                          extra={"batches_consumed": step + 1,
+                                 "preempted": preempt.triggered})
+                saved = step + 1
+                if preempt.triggered:
+                    ckpt.wait()
+                    return params, history
+        if ckpt is not None:
+            if saved < train_cfg.steps:
+                ckpt.save(train_cfg.steps,
+                          state_tree(params, opt_state, ef_state),
+                          extra={"batches_consumed": train_cfg.steps})
+            ckpt.wait()
+    finally:
+        preempt.restore()
+    return params, history

@@ -5,7 +5,22 @@ global-norm clip active and inactive), the cheap CNN's ``loss_fn`` (atol
 1e-6) and five ``train`` steps of a tiny CNN from the JAX package's own
 initial weights and the same batches (parameters and logged losses
 within 1e-5: the two frameworks sum convolution gradients in other
-orders)."""
+orders).
+
+The rest of the substrate against the JAX package's: gradient compression
+(``cast_bf16`` and 50 steps of ``apply_ef``, bit for bit: both round half
+to even in the same fp32 order), ``StepTimer`` (the same stragglers and
+EMA), ``make_train_step`` on ``tests/test_train.py``'s quadratic and
+linear problems over micro-batches {1, 2} x compression {none, bf16,
+int8_ef} (5 steps, atol 1e-6: fp32 sums in another order), and the
+port's ``CheckpointManager`` (roundtrip with bf16 leaves bit for bit,
+pruning, a save that does not see later in-place updates, resume equal
+to an uninterrupted run bit for bit, a fake preemption, and the SIGTERM
+handler put back when ``train`` returns)."""
+import json
+import os
+import signal
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,13 +29,20 @@ import torch
 
 from repro.common.config import CheapCNNConfig as JCheapCNNConfig
 from repro.models import cnn as jcnn
+from repro.train import compression as jcomp
 from repro.train import optimizer as jopt
+from repro.train.elastic import StepTimer as JStepTimer
 from repro.train.train_loop import TrainConfig as JTrainConfig
+from repro.train.train_loop import make_train_step as jmake_train_step
 from repro.train.train_loop import train as jtrain
 from repro_torch.common.config import CheapCNNConfig
 from repro_torch.models import cnn
+from repro_torch.train import compression as comp
 from repro_torch.train import optimizer as opt
-from repro_torch.train.train_loop import TrainConfig, train
+from repro_torch.train import train_loop
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.elastic import PreemptionHandler, StepTimer
+from repro_torch.train.train_loop import TrainConfig, make_train_step, train
 
 TINY = dict(name="tiny", input_res=8, n_blocks=1, width=8, n_classes=5,
             feature_dim=16)
@@ -159,12 +181,234 @@ def test_train_matches_jax_from_a_shared_init():
                zip(got, jax.tree.leaves(tree))) > 1e-3
 
 
-@pytest.mark.parametrize("kw", [dict(n_microbatches=2),
-                                dict(compression="bf16"),
-                                dict(ckpt_every=10)])
-def test_unsupported_train_config_raises(kw):
-    model = cnn.build(CheapCNNConfig(**TINY),
-                      cnn.init_params(CheapCNNConfig(**TINY), 0), "cpu")
-    with pytest.raises(NotImplementedError):
-        train(lambda m, b: cnn.loss_fn(m, b["x"], b["y"]), model,
-              iter([]), opt.OptConfig(), TrainConfig(**kw))
+def _bits(a):
+    a = np.ascontiguousarray(a)
+    return a.view(np.dtype(f"u{a.dtype.itemsize}"))
+
+
+def test_compression_matches_jax_bitwise():
+    """``cast_bf16`` and 50 steps of ``apply_ef`` over gradients whose
+    magnitudes span 1e-6 to 1e2, each step's output and residual bit for
+    bit."""
+    r = np.random.default_rng(0)
+    shapes = [(64, 32), (17,), (3, 5, 7)]
+    je = jcomp.init_ef_state({i: jnp.zeros(s) for i, s in enumerate(shapes)})
+    pe = comp.init_ef_state([torch.zeros(s) for s in shapes])
+    for _ in range(50):
+        gs = [(r.normal(size=s) * 10 ** r.uniform(-6, 2)).astype(np.float32)
+              for s in shapes]
+        jd, je = jcomp.apply_ef({i: jnp.asarray(g) for i, g in enumerate(gs)},
+                                je)
+        pd, pe = comp.apply_ef([torch.from_numpy(g) for g in gs], pe)
+        jb = jcomp.cast_bf16({i: jnp.asarray(g) for i, g in enumerate(gs)})
+        pb = comp.cast_bf16([torch.from_numpy(g) for g in gs])
+        for i in range(len(shapes)):
+            for got, want in ((pd[i], jd[i]), (pe[i], je[i]), (pb[i], jb[i])):
+                assert got.dtype == torch.float32
+                assert np.array_equal(_bits(got.numpy()),
+                                      _bits(np.asarray(want)))
+
+
+def test_step_timer_matches_jax():
+    r = np.random.default_rng(1)
+    dts = r.exponential(1.0, 300) * np.where(r.random(300) < 0.05, 6.0, 1.0)
+    got, want = StepTimer(alpha=0.2), JStepTimer(alpha=0.2)
+    for dt in dts:
+        got.observe(float(dt))
+        want.observe(float(dt))
+    assert got.n_stragglers == want.n_stragglers > 0
+    assert (got.ema, got.last, got.n_steps) == (want.ema, want.last,
+                                                want.n_steps)
+    with got.measure():
+        pass
+    assert got.n_steps == 301 and 0 <= got.last < 1
+
+
+def _problem(name):
+    """``tests/test_train.py``'s problems as (JAX loss, port loss, params
+    as numpy, batch as numpy, OptConfig kwargs)."""
+    if name == "quadratic":
+        x = np.array([[1.0, 2.0], [3.0, 1.0], [0.5, -1.0]], np.float32)
+        y = x @ np.array([[1.0], [-1.0]], np.float32)
+
+        def jloss(params, batch, rng):
+            l = jnp.mean((jnp.asarray(x) @ params["w"] - jnp.asarray(y)) ** 2)
+            return l, {"l": l}
+
+        def loss(params, batch):
+            l = torch.mean((torch.from_numpy(x) @ params["w"]
+                            - torch.from_numpy(y)) ** 2)
+            return l, {"l": l.detach()}
+
+        return (jloss, loss, {"w": np.zeros((2, 1), np.float32)},
+                {"dummy": np.zeros((4, 1), np.float32)},
+                dict(lr=0.1, warmup_steps=0, total_steps=10))
+
+    def jloss(params, batch, rng):
+        return jnp.mean((batch["x"] * params["w"] - 1.0) ** 2), {}
+
+    def loss(params, batch):
+        return torch.mean((batch["x"] * params["w"] - 1.0) ** 2), {}
+
+    return (jloss, loss, {"w": np.ones((1,), np.float32)},
+            {"x": np.arange(8.0, dtype=np.float32).reshape(8, 1)},
+            dict(lr=0.01, warmup_steps=0, total_steps=10, weight_decay=0.0,
+                 clip_norm=0.0))
+
+
+@pytest.mark.parametrize("compression", ["none", "bf16", "int8_ef"])
+@pytest.mark.parametrize("n_mb", [1, 2])
+@pytest.mark.parametrize("problem", ["quadratic", "linear"])
+def test_make_train_step_matches_jax(problem, n_mb, compression):
+    jloss, loss, p0, batch, okw = _problem(problem)
+    tcfg = dict(n_microbatches=n_mb, compression=compression)
+    jstep = jmake_train_step(jloss, jopt.OptConfig(**okw),
+                             JTrainConfig(**tcfg), donate=False)
+    step = make_train_step(loss, opt.OptConfig(**okw), TrainConfig(**tcfg))
+    jp = {k: jnp.asarray(v) for k, v in p0.items()}
+    jst = jopt.init(jp)
+    jef = jcomp.init_ef_state(jp) if compression == "int8_ef" else 0
+    p = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
+    st = opt.init([p["w"]])
+    ef = comp.init_ef_state([p["w"]]) if compression == "int8_ef" else 0
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    for _ in range(5):
+        jp, jst, jef, jm = jstep(jp, jst, jef, jb, jax.random.PRNGKey(0))
+        p, st, ef, m = step(p, st, ef, b)
+        np.testing.assert_allclose(p["w"].numpy(), np.asarray(jp["w"]),
+                                   atol=1e-6, rtol=1e-6)
+        assert set(m) == set(jm)
+        for k in jm:
+            np.testing.assert_allclose(float(m[k]), float(jm[k]),
+                                       atol=1e-6, rtol=1e-6)
+        if compression == "int8_ef":
+            # residuals are differences of gradient-sized fp32 values, and
+            # XLA's fused step rounds the scale's product its own way
+            np.testing.assert_allclose(
+                ef[0].numpy(), np.asarray(jef["w"]),
+                atol=1e-6 * float(jm["grad_norm"]))
+    assert st["step"] == int(jst["step"]) == 5
+    assert not p["w"].requires_grad          # the flag is the caller's
+
+
+def test_checkpoint_roundtrip_bf16_bitwise(tmp_path):
+    r = np.random.default_rng(2)
+    bf = torch.from_numpy(r.normal(size=(5, 3)).astype(np.float32)).to(
+        torch.bfloat16)
+    tree = {"b": [torch.arange(6).reshape(2, 3), (np.ones(4), None)],
+            "a": bf, "c": np.int32(7), "d": 0}
+    ckpt = CheckpointManager(str(tmp_path), keep=2, async_save=False)
+    ckpt.save(7, tree, extra={"foo": 1})
+    step, got, extra = ckpt.restore(device="cpu")
+    assert step == 7 and extra == {"foo": 1}
+    assert sorted(got) == ["a", "b", "c", "d"]
+    assert got["a"].dtype == torch.bfloat16
+    assert torch.equal(got["a"].view(torch.int16), bf.view(torch.int16))
+    assert torch.equal(got["b"][0], tree["b"][0])
+    assert isinstance(got["b"][1], tuple) and got["b"][1][1] is None
+    np.testing.assert_array_equal(got["b"][1][0].numpy(), np.ones(4))
+    assert got["c"].dtype == torch.int32 and int(got["c"]) == 7
+    assert got["d"].dtype == torch.int64 and int(got["d"]) == 0
+    with open(tmp_path / "step_00000007" / "manifest.json") as f:
+        man = json.load(f)
+    # the JAX package's order: a, b[0], b[1][0], c, d
+    assert man["dtypes"] == ["bfloat16", "int64", "float64", "int32",
+                             "int64"]
+    assert man["shapes"][0] == [5, 3] and man["n_leaves"] == 5
+
+
+def test_checkpoint_prune_and_async_copy(tmp_path):
+    ckpt = CheckpointManager(str(tmp_path), keep=2)
+    x = torch.zeros(4)
+    for s in (1, 2, 3, 4):
+        ckpt.save(s, {"x": x})
+        x.add_(1.0)           # in place, right after save: not in step s
+    ckpt.wait()
+    assert ckpt.all_steps() == [3, 4] and ckpt.latest_step() == 4
+    for s in (3, 4):
+        _, got, _ = ckpt.restore(s, device="cpu")
+        assert torch.equal(got["x"], torch.full((4,), s - 1.0))
+    assert not [d for d in os.listdir(tmp_path) if d.startswith(".tmp")]
+    with pytest.raises(FileNotFoundError):
+        CheckpointManager(str(tmp_path / "empty")).restore(device="cpu")
+
+
+def _quadratic_train(ckpt, steps, **tcfg):
+    _, loss, p0, _, _ = _problem("quadratic")
+    params = {"w": torch.from_numpy(p0["w"].copy())}
+
+    def data():
+        i = 0
+        while True:
+            i += 1
+            yield {"i": torch.full((4, 1), float(i))}
+
+    seen = []
+    return train(lambda p, b: (seen.append(float(b["i"][0, 0])) or
+                               loss(p, b)), params, data(),
+                 opt.OptConfig(lr=0.1, warmup_steps=0, total_steps=100),
+                 TrainConfig(steps=steps, log_every=5, **tcfg),
+                 ckpt=ckpt), seen
+
+
+@pytest.mark.parametrize("compression", ["none", "int8_ef"])
+def test_resume_equals_uninterrupted_bitwise(tmp_path, compression):
+    (want, _), _ = _quadratic_train(None, 20, compression=compression,
+                                    n_microbatches=2)
+    ckpt = CheckpointManager(str(tmp_path), async_save=False)
+    (_, _), _ = _quadratic_train(ckpt, 10, compression=compression,
+                                 n_microbatches=2, ckpt_every=5)
+    assert ckpt.all_steps() == [5, 10]
+    (got, hist), seen = _quadratic_train(ckpt, 20, compression=compression,
+                                         n_microbatches=2)
+    assert hist[0]["step"] == 11                       # resumed
+    assert seen[0] == 11.0                             # iterator replayed
+    assert torch.equal(got["w"], want["w"])
+    assert ckpt.latest_step() == 20
+
+
+class _FakePreempt:
+    """Triggers on the third read of ``triggered``; counts ``restore``."""
+    restored = 0
+
+    def __init__(self, *a, **k):
+        self.reads = 0
+
+    @property
+    def triggered(self):
+        self.reads += 1
+        return self.reads > 2
+
+    def restore(self):
+        _FakePreempt.restored += 1
+
+
+def test_fake_preemption_checkpoints_and_returns(tmp_path, monkeypatch):
+    monkeypatch.setattr(train_loop, "PreemptionHandler", _FakePreempt)
+    _FakePreempt.restored = 0
+    ckpt = CheckpointManager(str(tmp_path))
+    (p, hist), seen = _quadratic_train(ckpt, 100)
+    step, tree, extra = ckpt.restore(device="cpu")
+    assert extra == {"batches_consumed": step, "preempted": True}
+    assert 0 < step < 100 and len(seen) == step
+    assert torch.equal(tree[0]["w"], p["w"]) and int(tree[1]["step"]) == step
+    assert _FakePreempt.restored == 1
+
+
+def test_train_puts_the_sigterm_handler_back():
+    def mine(signum, frame):
+        pass
+
+    old = signal.signal(signal.SIGTERM, mine)
+    try:
+        _quadratic_train(None, 3)
+        assert signal.getsignal(signal.SIGTERM) is mine
+        h = PreemptionHandler()
+        assert signal.getsignal(signal.SIGTERM) == h._handle
+        h._handle(signal.SIGTERM, None)              # no real signal sent
+        assert h.triggered
+        h.restore()
+        assert signal.getsignal(signal.SIGTERM) is mine
+    finally:
+        signal.signal(signal.SIGTERM, old)
