@@ -33,7 +33,9 @@ Phases, each fatal on failure (no phase's failure is caught):
    every slot its solo launch's bits, timed against 8 solo launches, with
    the stacked unmatched tail against solo scans, bitwise; ``topk`` is
    timed on a batch of the cheap CNN's own probabilities (with a -0.0
-   against +0.0 tie among its checks), ``dequant_topk`` also on rows whose
+   against +0.0 tie among its checks) and at the MoE router's shapes
+   (8192 x 64 with k = 6, 4 x 64, 8192 x 16 with k = 4, tied experts
+   among them) against ``torch.topk``, ``dequant_topk`` also on rows whose
    distinct levels collide (a scale underflowing to 0, levels overflowing
    to inf), ``motion_gate_frames`` (one launch per window) on a window of
    the stream's 128 x 128 frames as background subtraction cuts it, on a
@@ -93,7 +95,21 @@ Phases, each fatal on failure (no phase's failure is caught):
    KV-cache decode of 4 sequences (a 32-token prompt, then 32 greedy
    tokens); then, on the same weights in fp32, the two routes' prefill
    logits and ``decode_step`` against ``forward`` within 1e-4 of the
-   largest |logit|. Then LM training (``train_path``): olmo-1b at full
+   largest |logit|. Then the MoE LMs (``moe_path``, through the same
+   ``lm_path``): moonshot-v1-16b-a3b at full width and depth (48 layers,
+   64 experts top-6, 56.1 GB in bf16; init time and peak memory) and
+   dbrx-132b at full width with 2 layers, each prefilled on both routes
+   in both dispatch modes (``einsum``, ``scatter``) against one bound
+   per model, the function's work on the choices it keeps (capacity
+   padding and GShard's dispatch products reported beside it as the
+   code's extra work), and decoded as above against the bytes of the
+   experts each step routes to, ``flash_attention`` once per layer per
+   flash call and the
+   router's ``topk`` once per layer per forward call and per decode
+   step; in fp32 at 2 layers the routes within 1e-4 and the dispatch
+   modes within 1e-5, each pair's routing compared (identical choices
+   wherever the smallest top-k margin exceeds the router difference).
+   Then LM training (``train_path``): olmo-1b at full
    width and depth through ``repro_torch.launch.train``'s ``main``
    (``--full --steps 20 --batch 8 --seq 2048 --microbatches 2``, bf16,
    remat on): init s, the device ms/step (median of steps 3-20, the card
@@ -126,12 +142,15 @@ Phases, each fatal on failure (no phase's failure is caught):
    the CPU's staged path save identical bytes, and the two sinks hold
    identical top-K; the LM at olmo-1b's width with 2 layers in fp32 gives
    the CPU's prefill (flash route) and decode logits within 1e-4 of the
-   largest |logit|, and the threefry draws of the cheap CNNs and of a
-   reduced LM are bitwise equal on the card and on the CPU; the same
-   2-layer LM in fp32, trained 3 steps of 1 x 64 tokens from one init on
-   each device: the first step's gradients within 1e-5 of each leaf's
-   largest |grad|, the losses within 1e-5 relative, the parameters
-   within 2 lr per step (``train_card_vs_cpu_lm`` says why);
+   largest |logit|, and so does moonshot-v1-16b-a3b at its full width
+   with 2 layers (its routes compared as above), and the threefry draws
+   of the cheap CNNs and of reduced olmo-1b and moonshot are bitwise
+   equal on the card and on the CPU; the same 2-layer LM in fp32, and
+   reduced moonshot (the backward through the router and the dispatch),
+   trained 3 steps of 1 x 64 tokens from one init on each device: the
+   first step's gradients within 1e-5 of each leaf's largest |grad|, the
+   losses within 1e-5 relative, the parameters within 2 lr per step
+   (``train_card_vs_cpu_lm`` says why);
 5. where the ingest time goes: wall time per stage on a 120 s cut, for
    the override path's cheap1 (K=1000, T=0.4) and for the default path's
    chosen model at its K and T; then each path's ``pixel_match`` and
@@ -147,10 +166,14 @@ indices exact; ``motion_gate``'s new background, tile means and hot mask
 bitwise; ``flash_attention`` fp32 atol = rtol = 2e-5 (the JAX package's
 own), bf16 one ulp: rtol 2**-7, atol 1e-4 (kernel and plain version each
 round one fp32 result to bf16 once); LM training on one device repeated
-and resumed bitwise, card against CPU as in phase 4.
+and resumed bitwise, card against CPU as in phase 4; MoE routing (expert
+choice, slots, capacity cut) identical between two runs wherever the
+router's smallest top-k margin exceeds the two runs' difference in
+router probabilities.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -182,6 +205,14 @@ PEAKS = {
 LM_ARCH = "olmo-1b"
 LM_BATCH, LM_SEQ = 4, 2048
 DECODE_PROMPT, DECODE_NEW, DECODE_SLOTS = 32, 32, 2048
+# The MoE path, the same prefills and decode: moonshot-v1-16b-a3b at full
+# width and depth (48 layers, 28.06 B parameters, 56.1 GB in bf16), and
+# dbrx-132b at full width with 2 of its 40 layers (131.6 B parameters in
+# full, 263 GB); the fp32 checks at full width with 2 layers (the full
+# moonshot would take 112 GB in fp32)
+MOE_DBRX_LAYERS = 2
+MOE_ARCHS = (("moonshot-v1-16b-a3b", None), ("dbrx-132b", MOE_DBRX_LAYERS))
+MOE_CHECK_LAYERS = 2
 # phase 4's card-against-CPU LM: olmo-1b's width with 2 layers
 LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_SEQ = 2, 2, 256
 # LM training: olmo-1b at full width and depth through the training
@@ -771,6 +802,50 @@ def topk_entry(ops, ref, probs, peaks):
     }
 
 
+def router_probs(dev, B, E, seed, levels=None):
+    """(B, E) fp32 rows as the MoE router makes them: the softmax of
+    N(0, 1) logits (moonshot's router logits at init have about unit
+    spread); with ``levels``, the logits rounded to that many levels per
+    unit, so that experts tie."""
+    import numpy as np
+    import torch
+    logits = np.random.default_rng(seed).normal(size=(B, E))
+    if levels is not None:
+        logits = np.round(logits * levels) / levels
+    x = torch.from_numpy(logits.astype(np.float32)).to(dev)
+    return torch.softmax(x, dim=-1).contiguous()
+
+
+def router_topk_entry(ops, ref, dev, peaks):
+    """``topk`` at the MoE router's shapes against its plain version:
+    moonshot's prefill (8192 tokens, 64 experts, k = 6) and decode step
+    (4 tokens), dbrx's prefill and decode step (16 experts, k = 4), each
+    also with tied logits and a row of equal probabilities (experts
+    0..k-1); then timed at moonshot's prefill shape against the plain
+    version and ``torch.topk`` (which keeps no tie rule: a yardstick
+    only)."""
+    import torch
+    errs = []
+    for B, E, k in ((8192, 64, 6), (4, 64, 6), (8192, 16, 4), (4, 16, 4)):
+        for levels in (None, 2):
+            x = router_probs(dev, B, E, B + E, levels)
+            x[B // 2] = 1.0 / E
+            err, i = _topk_pair(ops, ref, x, k)
+            check(i[B // 2].tolist() == list(range(k)),
+                  f"router topk tie: {i[B // 2].tolist()}")
+            errs.append(err)
+    B, E, k = LM_BATCH * LM_SEQ, 64, 6
+    probs = router_probs(dev, B, E, 0)
+    n_bytes = 4 * B * E + 8 * B * k
+    return {
+        "path_shape": "moonshot's router at a 4 x 2048 prefill",
+        "shape": [B, E, k], "cases": len(errs), "max_abs_err": max(errs),
+        **timings(lambda: ops.topk(probs, k), lambda: ref.topk_ref(probs, k),
+                  lambda: torch.topk(probs, k, dim=1)),
+        "bound_ms": 1e3 * n_bytes / peaks["bytes"], "bound_by": "bytes",
+    }
+
+
 def _gate_pair(ops, ref, f, bg, alpha, thr, tile):
     """The kernel and its plain version on the same card-resident inputs:
     new_bg, tiles and hot must be bitwise equal."""
@@ -1047,7 +1122,8 @@ def kernel_phase(ops, ref, dev, crops, probs, peaks):
                     "per row, shuffles below stride 32",
           "source": "src/repro_torch/hopper/csrc/topk.cu",
           "replaces": "src/repro/kernels/topk_mask.py:42",
-          "max_abs_err": tk_err, **topk_entry(ops, ref, probs, peaks)}
+          "max_abs_err": tk_err, **topk_entry(ops, ref, probs, peaks),
+          "router": router_topk_entry(ops, ref, dev, peaks)}
     mg = {"name": "motion_gate", "route": "cuda",
           "design": "one launch per window of frames: a group of threads "
                     "per tile, its values' background in registers across "
@@ -1081,11 +1157,12 @@ def kernel_phase(ops, ref, dev, crops, probs, peaks):
     return ca, pm, dq, tk, mg, fa, extra
 
 
-def lm_config(**overrides):
-    """The LM of the path (``LM_ARCH``'s config), with ``overrides``."""
+def lm_config(arch=LM_ARCH, **overrides):
+    """An LM of the registry (by default the LM path's, ``LM_ARCH``), with
+    ``overrides``."""
     import dataclasses
     from repro_torch.configs import get_arch
-    return dataclasses.replace(get_arch(LM_ARCH), **overrides)
+    return dataclasses.replace(get_arch(arch), **overrides)
 
 
 def _flash_pair(ops, ref, q, k, v, causal, atol, rtol=0.0):
@@ -1798,65 +1875,260 @@ def _rel_err(a, b):
                  / b.float().abs().max())
 
 
-def lm_path(ops, peaks):
-    """The decoder LM served on the card: ``transformer.init`` of the path's
-    config from seed 0, the prefill of ``LM_BATCH`` prompts of ``LM_SEQ``
-    tokens through the flash route (one ``flash_attention`` launch per
-    layer per call) and the einsum route (a warm-up, then the median wall
-    of 3 calls each), and decode: a ``DECODE_PROMPT``-token prompt through
-    ``decode_step`` one token at a time, then ``DECODE_NEW`` greedy
-    tokens, into a ``DECODE_SLOTS``-slot cache. The launch counters are
-    zeroed just before and read just after. Then the fp32 checks on the
-    same weights widened to fp32: the two prefill routes' last-position
-    logits, and ``decode_step`` fed the prompt against ``forward`` of the
-    prompt at every position, each within 1e-4 of the largest |logit|."""
+@contextlib.contextmanager
+def recorded_routes():
+    """Every ``layers.moe_route`` call inside the block, in call order, as
+    host tensors [probs, idx, within, keep]: observation only, the
+    routes themselves untouched."""
+    from repro_torch.models import layers
+    calls, route = [], layers.moe_route
+
+    def record(*a):
+        out = route(*a)
+        calls.append([out[0].detach().float().cpu()]
+                     + [t.cpu() for t in out[3:]] + [out[1].cpu()])
+        return out
+
+    layers.moe_route = record
+    try:
+        yield calls
+    finally:
+        layers.moe_route = route
+
+
+def route_agreement(a, b, k, what):
+    """Two runs' routes (``recorded_routes``) on the same inputs, MoE call
+    by call. Per token: its top-k margin in b (the smallest gap among its
+    k + 1 largest router probabilities: it decides the choices and their
+    order, hence the slots) and the largest difference between the two
+    runs' probabilities for it. Up to the first call where a token's
+    choices differ, every token whose margin exceeds its difference must
+    choose identically, and a flip is allowed only at a near-tie; a group
+    whose tokens all chose identically must give identical slots and
+    capacity cuts. Past a flip a call's inputs may differ by it, so later
+    calls are reported, not held."""
+    import torch
+    check(len(a) == len(b) > 0, f"{what}: {len(a)} against {len(b)} MoE "
+          f"calls")
+    margins, diffs, near, flip_at, flipped = [], [], 0, None, []
+    for n, (x, y) in enumerate(zip(a, b)):
+        srt = torch.sort(y[0], dim=-1, descending=True).values[..., :k + 1]
+        margin = (srt[..., :-1] - srt[..., 1:]).amin(-1)       # (G, gs)
+        diff = (x[0] - y[0]).abs().amax(-1)
+        margins.append(float(margin.min()))
+        diffs.append(float(diff.max()))
+        if flip_at is not None:
+            continue
+        held = margin > diff
+        near += int((~held).sum())
+        differ = (x[3] != y[3]).any(-1)
+        check(not bool((differ & held).any()),
+              f"{what}: MoE call {n} routes {int((differ & held).sum())} "
+              f"tokens otherwise whose margin exceeds the difference")
+        same_group = ~differ.any(-1)
+        for u, v in zip(x[1:3], y[1:3]):            # within, keep
+            check(torch.equal(u[same_group], v[same_group]),
+                  f"{what}: MoE call {n}: equal choices, other slots")
+        if bool(differ.any()):
+            flip_at = n
+            flipped = [{"margin": float(margin[i]), "diff": float(diff[i])}
+                       for i in zip(*torch.nonzero(differ, as_tuple=True))]
+    return {"calls": len(a), "first_flip_call": flip_at,
+            "tokens_flipped": flipped, "near_ties_before_flip": near,
+            "min_margin": min(margins), "max_prob_diff": max(diffs)}
+
+
+def prefill_work(cfg, batch, seq, kept=None, attn_impl=None,
+                 dispatch=None):
+    """The work of one prefill of ``batch`` x ``seq`` tokens by category,
+    each (bf16 tensor-core FLOP, fp32 FLOP). With no ``attn_impl``, the
+    function's, whatever computes it: per layer the attention
+    projections, 2 FLOP per weight and token; causal attention, the
+    causal half of q.k^T and of p.v (S(S+1)/2 pairs per sequence and
+    head, 2 dh FLOP each per product) on the bf16 tensor cores; the dense
+    MLP, or for MoE the fp32 router (2 D E a token) and the experts'
+    three products for the ``kept`` (token, choice) pairs that this run
+    routed, summed over the layers (a dropped choice costs nothing);
+    then the fp32 head on the last position. With ``attn_impl`` and
+    ``dispatch``, the code's: attention on the einsum route the fp32
+    q.k^T (TF32 off) and the bf16 p.v over the full S^2 (one query
+    block: ``attn_q_chunk`` >= S), on the flash route the causal half
+    with p.v twice (``flash_entry``); the experts over all E x G x C
+    capacity slots, filled or not; with the einsum dispatch, GShard's
+    dispatch and combine products, 2 G gs E C D each."""
+    from repro_torch.models.layers import moe_groups
+    tokens, D, L = batch * seq, cfg.d_model, cfg.n_layers
+    n = 2 * batch * cfg.n_heads * cfg.head_dim * seq * (seq + 1)
+    work = {"projections": (2 * cfg._per_layer_attn() * tokens * L, 0),
+            "attention": (n * L, 0),
+            "head": (0, 2 * batch * D * cfg.vocab_size)}
+    if attn_impl == "flash":
+        work["attention"] = (1.5 * n * L, 0)
+    elif attn_impl is not None:
+        s2 = 2 * batch * cfg.n_heads * cfg.head_dim * seq * seq
+        work["attention"] = (s2 * L, s2 * L)
+    if not cfg.moe:
+        n_mat = 3 if cfg.mlp_act == "swiglu" else 2
+        work["mlp"] = (2 * n_mat * D * cfg.d_ff * tokens * L, 0)
+        return work
+    gs, G, C = moe_groups(tokens, cfg.moe_group_size, cfg.moe_top_k,
+                          cfg.moe_capacity_factor, cfg.n_experts)
+    work["router"] = (0, 2 * tokens * D * cfg.n_experts * L)
+    slots = kept if attn_impl is None else cfg.n_experts * G * C * L
+    work["experts"] = (6 * D * cfg.d_ff * slots, 0)
+    if dispatch == "einsum":
+        work["dispatch"] = (4 * G * gs * cfg.n_experts * C * D * L, 0)
+    return work
+
+
+def work_s(work, peaks):
+    """Seconds of ``prefill_work`` categories at the card's peak rates."""
+    return sum(b / peaks["bf16_tc"] + f / peaks["fp32"]
+               for b, f in work.values())
+
+
+def needed_weight_bytes(params, cfg, rows, experts_used=None):
+    """The weight bytes a call must read: every weight once, except the
+    token embedding's rows that no token of the call looks up (all of it
+    is read where it is also the head) and, with ``experts_used`` (the
+    experts that keep a choice, summed over the layers), the experts a
+    call routes nothing to."""
+    size = sum(x.numel() * x.element_size() for x in _flat_tree(params))
+    emb = params["tok_embed"]
+    if not cfg.tie_embeddings:
+        size -= (emb.shape[0] - rows) * emb.shape[1] * emb.element_size()
+    if experts_used is not None:
+        moe = params["layers"]["moe"]
+        per_expert = sum(moe[w][0, 0].numel() * moe[w].element_size()
+                         for w in ("wi", "wg", "wo"))
+        size -= (cfg.n_layers * cfg.n_experts - experts_used) * per_expert
+    return size
+
+
+def kept_and_used(routes):
+    """(kept (token, choice) pairs, experts that keep at least one),
+    summed over the MoE calls of ``recorded_routes``; (None, None) for a
+    dense LM."""
+    if not routes:
+        return None, None
+    return (sum(int(r[2].sum()) for r in routes),
+            sum(int(r[3][r[2]].unique().numel()) for r in routes))
+
+
+def lm_path(ops, peaks, cfg, check_layers=None):
+    """The decoder LM ``cfg`` served on the card: ``transformer.init`` from
+    seed 0 (its time and peak memory), the prefill of ``LM_BATCH``
+    prompts of ``LM_SEQ`` tokens through the flash route and the einsum
+    route, for MoE in both dispatch modes (a warm-up, then the median
+    wall of 3 calls each; one bound per model, the function's
+    ``prefill_work`` on the kept choices that the warm-up routed, and
+    beside it the code's extra work, such as capacity padding and
+    GShard's dispatch products, as ms at peak), and decode: a
+    ``DECODE_PROMPT``-token prompt through ``decode_step`` one token at a
+    time, then ``DECODE_NEW`` greedy tokens, into a ``DECODE_SLOTS``-slot
+    cache (its bytes bound both as every weight read and as what the
+    function needs: the experts that keep a choice, counted by replaying
+    the same tokens). The launch counters are zeroed just before and
+    read just after:
+    ``flash_attention`` once per layer per flash call, the MoE router's
+    ``topk`` once per layer per forward call and per decode step, and no
+    other kernel. Then the fp32 checks on the same weights widened to
+    fp32, the first ``check_layers`` layers (all by default): the two
+    prefill routes' last-position logits within 1e-4 of the largest
+    |logit|; for MoE, the two dispatch modes within 1e-5, each pair of
+    runs' routes compared (``route_agreement``); for a dense LM,
+    ``decode_step`` fed the prompt against ``forward`` of the prompt at
+    every position within 1e-4. An MoE decode step routes its B tokens as
+    one group, with another capacity than ``forward``'s groups, so it has
+    no such check: phase 4 holds it against the CPU."""
     import dataclasses
     import statistics
     import numpy as np
     import torch
     from repro_torch.common.device import resolve_device
     from repro_torch.models import transformer as T
+    from repro_torch.models.layers import moe_groups, moe_route
 
     dev = resolve_device("cuda")
-    cfg = lm_config()
+    modes = ("einsum", "scatter") if cfg.moe else (cfg.moe_dispatch,)
+    if cfg.moe:
+        gs, G, C = moe_groups(LM_BATCH * LM_SEQ, cfg.moe_group_size,
+                              cfg.moe_top_k, cfg.moe_capacity_factor,
+                              cfg.n_experts)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = T.init(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_params = sum(x.numel() for x in _flat_tree(params))
     weight_bytes = sum(x.numel() * x.element_size()
                        for x in _flat_tree(params))
     r = np.random.default_rng(0)
     tokens = torch.from_numpy(r.integers(0, cfg.vocab_size,
                                          (LM_BATCH, LM_SEQ))).to(dev)
+    moe_calls = cfg.n_layers if cfg.moe else 0
 
     PREFILL_CALLS = 4
+
+    prompt_rows = int(torch.unique(tokens).numel())
 
     def run_prefill(impl, p, c):
         walls, out = [], None
         for i in range(PREFILL_CALLS):      # a warm-up, then 3 timed calls
-            before = ops.LAUNCHES["flash_attention"]
+            before = dict(ops.LAUNCHES)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = T.prefill(p, tokens, c, attn_impl=impl)
+            if i:
+                out = T.prefill(p, tokens, c, attn_impl=impl)
+            else:                           # the warm-up counts the routes
+                with recorded_routes() as routed:
+                    out = T.prefill(p, tokens, c, attn_impl=impl)
             torch.cuda.synchronize()
             if i:
                 walls.append(time.perf_counter() - t0)
-            n = ops.LAUNCHES["flash_attention"] - before
-            want = c.n_layers if impl == "flash" else 0
-            check(n == want, f"{impl} prefill launched flash_attention "
-                  f"{n} times, expected {want}")
+            n = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            want = {"flash_attention": c.n_layers if impl == "flash" else 0,
+                    "topk": moe_calls}
+            check(all(n[k] == want.get(k, 0) for k in n),
+                  f"{impl} prefill launched {n}, expected {want}")
         check(out.shape == (LM_BATCH, 1, c.vocab_size)
               and bool(torch.isfinite(out).all()),
               f"{impl} prefill logits {tuple(out.shape)} not finite")
         med = statistics.median(walls)
+        kept, used = kept_and_used(routed)
+        fn = prefill_work(c, LM_BATCH, LM_SEQ, kept)
+        code = prefill_work(c, LM_BATCH, LM_SEQ, kept, impl, c.moe_dispatch)
+        op_s = work_s(fn, peaks)
+        by_s = needed_weight_bytes(p, c, prompt_rows, used) / peaks["bytes"]
+        bf16 = sum(b for b, _ in code.values())
+        fp32 = sum(f for _, f in code.values())
         return out, {"walls_s": walls, "median_s": med,
-                     "tokens_per_s": LM_BATCH * LM_SEQ / med}
+                     "tokens_per_s": LM_BATCH * LM_SEQ / med,
+                     "launches_per_call": n, "kept_choices": kept,
+                     "experts_used": used,
+                     "kept_share_by_layer": [float(r[2].float().mean())
+                                             for r in routed],
+                     "bound_tflop": sum(b + f for b, f in fn.values()) / 1e12,
+                     "code_bf16_tflop": bf16 / 1e12,
+                     "code_fp32_tflop": fp32 / 1e12,
+                     "achieved_tflops": (bf16 + fp32) / med / 1e12,
+                     "bound_ms": 1e3 * max(op_s, by_s),
+                     "bound_by": "operations" if op_s > by_s else "bytes",
+                     "code_extra_ms_at_peak": {
+                         k: 1e3 * (work_s({k: v}, peaks)
+                                   - work_s({k: fn.get(k, (0, 0))}, peaks))
+                         for k, v in code.items() if v != fn.get(k)}}
 
     ops.reset_launches()
-    flash_logits, flash = run_prefill("flash", params, cfg)
-    einsum_logits, einsum = run_prefill("einsum", params, cfg)
+    prefill, logits_of = {}, {}
+    for mode in modes:
+        c = dataclasses.replace(cfg, moe_dispatch=mode)
+        for impl in ("flash", "einsum"):
+            name = f"{impl}_{mode}" if cfg.moe else impl
+            logits_of[name], prefill["prefill_" + name] = run_prefill(
+                impl, params, c)
     cache = T.init_cache(cfg, LM_BATCH, DECODE_SLOTS, device="cuda")
     cache_bytes = sum(x.numel() * x.element_size() for x in cache.values())
     torch.cuda.synchronize()
@@ -1867,22 +2139,25 @@ def lm_path(ops, peaks):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     tok, generated = logits.argmax(-1), []
+    fed = [tokens[:, t:t + 1] for t in range(DECODE_PROMPT)]
     for t in range(DECODE_PROMPT, DECODE_PROMPT + DECODE_NEW):
+        fed.append(tok)
         logits, cache = T.decode_step(params, cache, tok, t, cfg)
         tok = logits.argmax(-1)
         generated.append(tok)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = dict(ops.LAUNCHES)
-    check(launches["flash_attention"] == PREFILL_CALLS * cfg.n_layers
-          and sum(launches.values()) == launches["flash_attention"],
-          f"the LM path's launches: {launches}")
+    steps = DECODE_PROMPT + DECODE_NEW
+    want = {"flash_attention": PREFILL_CALLS * cfg.n_layers * len(modes),
+            "topk": moe_calls * (2 * PREFILL_CALLS * len(modes) + steps)}
+    check(all(launches[k] == want.get(k, 0) for k in launches),
+          f"the LM path's launches: {launches}, expected {want}")
     check(bool(torch.isfinite(logits).all()), "decode logits not finite")
     generated = torch.cat(generated, dim=1)
     check(generated.shape == (LM_BATCH, DECODE_NEW)
           and bool(((generated >= 0) & (generated < cfg.vocab_size)).all()),
           "greedy tokens out of the vocabulary")
-    steps = DECODE_PROMPT + DECODE_NEW
     decode = {
         "batch": LM_BATCH, "cache_slots": DECODE_SLOTS,
         "prompt_tokens": DECODE_PROMPT, "new_tokens": DECODE_NEW,
@@ -1890,53 +2165,138 @@ def lm_path(ops, peaks):
         "new_ms_per_token": 1e3 * (t2 - t1) / DECODE_NEW,
         "ms_per_token": 1e3 * (t2 - t0) / steps,
         "weights_gb": weight_bytes / 1e9, "cache_gb": cache_bytes / 1e9,
-        # every step reads every weight once; the einsum over the cache
-        # also reads all its slots (masked past the filled ones)
+        # the code reads every weight once a step (an MoE step too: at
+        # its C = 1 every expert runs); the einsum over the cache also
+        # reads all its slots (masked past the filled ones)
         "bound_ms_weights": 1e3 * weight_bytes / peaks["bytes"],
         "bound_ms_weights_and_cache":
             1e3 * (weight_bytes + cache_bytes) / peaks["bytes"],
         "first_generated": generated[0, :8].tolist(),
     }
-    bf16_routes = _rel_err(flash_logits, einsum_logits)
-    del cache, logits
+    own = f"_{cfg.moe_dispatch}" if cfg.moe else ""
+    bf16_routes = _rel_err(logits_of["flash" + own],
+                           logits_of["einsum" + own])
+    # where the time goes, after the counters were read: one flash
+    # prefill and one decode step under the profiler
+    profiles = {
+        "prefill_flash" + own: step_profile(
+            lambda: T.prefill(params, tokens, cfg, attn_impl="flash"),
+            prefill["prefill_flash" + own]["median_s"]),
+        "decode_step": step_profile(
+            lambda: T.decode_step(params, cache, tok, steps, cfg),
+            decode["new_ms_per_token"] / 1e3)}
+    # what a decode step needs: the same tokens replayed (the same
+    # computation) to count the experts each step routes to; the weights
+    # they and the rest of the LM read, the step's token rows, and the
+    # cache's filled slots read and one written
+    slot_bytes = cache_bytes / DECODE_SLOTS
+    needed, used_steps = [], []
+    for t, tk in enumerate(fed):
+        with recorded_routes() as routed:
+            T.decode_step(params, cache, tk, t, cfg)
+        used = kept_and_used(routed)[1]
+        used_steps.append(used)
+        needed.append(needed_weight_bytes(params, cfg, LM_BATCH, used)
+                      + (t + 2) * slot_bytes)
+    decode["bound_ms"] = 1e3 * statistics.mean(needed) / peaks["bytes"]
+    decode["bound_by"] = "bytes"
+    route_ms = None
+    if cfg.moe:
+        decode["experts_used_per_layer"] = (statistics.mean(used_steps)
+                                            / cfg.n_layers)
+        # one router call at the prefill's grouped shape, after the
+        # counters were read (it launches ``topk``)
+        xg = torch.randn(G, gs, cfg.d_model, device=dev).to(
+            params["tok_embed"].dtype)
+        gate = params["layers"]["moe"]["gate"][0]
+        route_ms = time_ms(lambda: moe_route(gate, xg, cfg.moe_top_k, C),
+                           iters=20)
+        del xg
+    del cache, logits, logits_of
 
     # fp32 checks on the same weights (bf16 values are exact in fp32)
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    p32 = T.tree_map(lambda x: x.float(), params)
+    n32 = check_layers or cfg.n_layers
+    cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=n32)
+    p32 = T.tree_map(lambda x: x.float(), dict(
+        params, layers=T.tree_map(lambda x: x[:n32], params["layers"])))
     del params
     torch.cuda.empty_cache()
-    fl32 = T.prefill(p32, tokens, cfg32, attn_impl="flash")
-    ei32 = T.prefill(p32, tokens, cfg32, attn_impl="einsum")
+    with recorded_routes() as ra:
+        fl32 = T.prefill(p32, tokens, cfg32, attn_impl="flash")
+    with recorded_routes() as rb:
+        ei32 = T.prefill(p32, tokens, cfg32, attn_impl="einsum")
     prefill_rel = _rel_err(fl32, ei32)
+    checks = {"fp32_layers": n32, "fp32_prefill_flash_vs_einsum_rel":
+              prefill_rel}
+    if cfg.moe:
+        checks["fp32_routes_flash_vs_einsum"] = route_agreement(
+            ra, rb, cfg.moe_top_k, "fp32 prefill, flash vs einsum route")
     check(prefill_rel <= 1e-4, f"fp32 prefill, flash vs einsum route: "
-          f"{prefill_rel} of the largest |logit|")
-    prompt = tokens[:, :DECODE_PROMPT]
-    full, _ = T.forward(p32, prompt, cfg32)
-    cache32 = T.init_cache(cfg32, LM_BATCH, DECODE_SLOTS, device="cuda")
-    per_step = []
-    for t in range(DECODE_PROMPT):
-        out, cache32 = T.decode_step(p32, cache32, prompt[:, t:t + 1], t,
-                                     cfg32)
-        per_step.append(out[:, 0])
-    decode_rel = _rel_err(torch.stack(per_step, dim=1), full)
-    check(decode_rel <= 1e-4, f"fp32 decode vs forward: {decode_rel} of "
-          f"the largest |logit|")
-    del p32, cache32
+          f"{prefill_rel} of the largest |logit| ({checks})")
+    if cfg.moe:
+        other = "scatter" if cfg.moe_dispatch == "einsum" else "einsum"
+        with recorded_routes() as rc:
+            oth32 = T.prefill(p32, tokens, dataclasses.replace(
+                cfg32, moe_dispatch=other), attn_impl="einsum")
+        checks["fp32_dispatch_modes_rel"] = _rel_err(oth32, ei32)
+        checks["fp32_routes_dispatch_modes"] = route_agreement(
+            rc, rb, cfg.moe_top_k, "fp32 prefill, dispatch modes")
+        check(checks["fp32_dispatch_modes_rel"] <= 1e-5,
+              f"fp32 prefill, {other} vs {cfg.moe_dispatch} dispatch: "
+              f"{checks}")
+    else:
+        prompt = tokens[:, :DECODE_PROMPT]
+        full, _ = T.forward(p32, prompt, cfg32)
+        cache32 = T.init_cache(cfg32, LM_BATCH, DECODE_SLOTS, device="cuda")
+        per_step = []
+        for t in range(DECODE_PROMPT):
+            out, cache32 = T.decode_step(p32, cache32, prompt[:, t:t + 1],
+                                         t, cfg32)
+            per_step.append(out[:, 0])
+        decode_rel = _rel_err(torch.stack(per_step, dim=1), full)
+        check(decode_rel <= 1e-4, f"fp32 decode vs forward: {decode_rel} "
+              f"of the largest |logit|")
+        checks["fp32_decode_vs_forward_rel"] = decode_rel
+        del cache32
+    del p32
     torch.cuda.empty_cache()
+    moe = {}
+    if cfg.moe:
+        moe = {"experts": cfg.n_experts, "top_k": cfg.moe_top_k,
+               "d_ff": cfg.d_ff, "prefill_groups": G, "group_size": gs,
+               "capacity": C, "modes": list(modes),
+               "route_ms_per_layer": route_ms}
     return {
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
-        "head_dim": cfg.head_dim, "dtype": cfg.dtype, "params": n_params,
+        "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
+        "dtype": cfg.dtype, **moe, "params": n_params,
         # the config's count also holds d for the final norm, which
         # OLMo's non-parametric LN does not have
         "config_n_params": cfg.n_params(),
-        "init_s": init_s, "batch": LM_BATCH, "seq": LM_SEQ,
-        "prefill_flash": flash, "prefill_einsum": einsum,
+        "init_s": init_s, "init_peak_gb": init_peak_gb,
+        "batch": LM_BATCH, "seq": LM_SEQ, **prefill,
         "prefill_bf16_flash_vs_einsum_rel": bf16_routes,
-        "decode": decode, "launches": launches,
-        "fp32_prefill_flash_vs_einsum_rel": prefill_rel,
-        "fp32_decode_vs_forward_rel": decode_rel,
+        "decode": decode, "launches": launches, "profiles": profiles,
+        **checks,
     }
+
+
+def moe_path(ops, peaks):
+    """The MoE LMs served on the card through ``lm_path``, each prefilled
+    in both dispatch modes with fp32 checks at ``MOE_CHECK_LAYERS``
+    layers: moonshot-v1-16b-a3b at full width and depth, and dbrx-132b
+    at full width with ``MOE_DBRX_LAYERS`` of its 40 layers."""
+    import torch
+    models = {}
+    for arch, n_layers in MOE_ARCHS:
+        over = {} if n_layers is None else {"n_layers": n_layers}
+        models[arch] = lm_path(ops, peaks, lm_config(arch, **over),
+                               check_layers=MOE_CHECK_LAYERS)
+        torch.cuda.empty_cache()
+    launches = {k: sum(m["launches"][k] for m in models.values())
+                for k in ops.LAUNCHES}
+    return {"models": models, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2207,43 +2567,77 @@ def train_resume():
 # phase 4: card against CPU
 # ---------------------------------------------------------------------------
 
-def lm_card_vs_cpu():
-    """The LM at the path's width with ``LM_CPU_LAYERS`` layers, fp32, the
-    same weights on both: the card's flash prefill and decode logits
-    against the CPU's (plain versions), within 1e-4 of the largest
-    |logit|; and the threefry draws on the card against the CPU's: the
-    cheap CNNs' ``init_params`` and a reduced LM's ``init``, bit for
-    bit."""
-    import dataclasses
+def lm_logits_card_vs_cpu(cfg):
+    """``cfg`` (fp32) with the same weights on both devices: the card's
+    flash prefill of ``LM_CPU_BATCH`` x ``LM_CPU_SEQ`` tokens and 16
+    decode steps against the CPU's (plain versions), within 1e-4 of the
+    largest |logit|; for MoE, both runs' routes compared
+    (``route_agreement``: the smallest top-k margin, the largest router
+    difference, and identical choices wherever the margin exceeds it)."""
     import numpy as np
     import torch
-    from repro_torch.common.config import reduced
     from repro_torch.common.device import resolve_device
-    from repro_torch.launch import zoo
-    from repro_torch.models import cnn
     from repro_torch.models import transformer as T
 
-    cfg = lm_config(n_layers=LM_CPU_LAYERS, dtype="float32")
     card = T.init(cfg, seed=1, device="cuda")
     cpu = T.tree_map(lambda x: x.cpu(), card)
     toks = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (LM_CPU_BATCH, LM_CPU_SEQ))
     tp = torch.from_numpy(toks)
     tc = tp.to(resolve_device("cuda"))
-    prefill_rel = _rel_err(T.prefill(card, tc, cfg, attn_impl="flash").cpu(),
-                           T.prefill(cpu, tp, cfg, attn_impl="flash"))
-    check(prefill_rel <= 1e-4, f"LM prefill card vs CPU: {prefill_rel}")
+    with recorded_routes() as ra:
+        a = T.prefill(card, tc, cfg, attn_impl="flash").cpu()
+    with recorded_routes() as rb:
+        b = T.prefill(cpu, tp, cfg, attn_impl="flash")
+    out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "batch": LM_CPU_BATCH, "seq": LM_CPU_SEQ,
+           "prefill_rel": _rel_err(a, b)}
+    if cfg.moe:
+        out["prefill_routes"] = route_agreement(ra, rb, cfg.moe_top_k,
+                                                "prefill card vs CPU")
+    check(out["prefill_rel"] <= 1e-4, f"LM prefill card vs CPU: {out}")
     n = 16
     caches = [T.init_cache(cfg, LM_CPU_BATCH, n, device=d)
               for d in ("cuda", "cpu")]
-    decode_rel = 0.0
+    decode_rel, ra, rb = 0.0, [], []
     for t in range(n):
-        a, caches[0] = T.decode_step(card, caches[0], tc[:, t:t + 1], t, cfg)
-        b, caches[1] = T.decode_step(cpu, caches[1], tp[:, t:t + 1], t, cfg)
+        with recorded_routes() as step_a:
+            a, caches[0] = T.decode_step(card, caches[0], tc[:, t:t + 1], t,
+                                         cfg)
+        with recorded_routes() as step_b:
+            b, caches[1] = T.decode_step(cpu, caches[1], tp[:, t:t + 1], t,
+                                         cfg)
+        ra += step_a
+        rb += step_b
         decode_rel = max(decode_rel, _rel_err(a.cpu(), b))
-    check(decode_rel <= 1e-4, f"LM decode card vs CPU: {decode_rel}")
+    out.update(decode_steps=n, decode_rel=decode_rel)
+    if cfg.moe:
+        out["decode_routes"] = route_agreement(ra, rb, cfg.moe_top_k,
+                                               "decode card vs CPU")
+    check(decode_rel <= 1e-4, f"LM decode card vs CPU: {out}")
     del card, cpu, caches
     torch.cuda.empty_cache()
+    return out
+
+
+def lm_card_vs_cpu():
+    """The LM at the path's width with ``LM_CPU_LAYERS`` layers, and
+    moonshot-v1-16b-a3b at its full width with as many, both fp32
+    (``lm_logits_card_vs_cpu``); and the threefry draws on the card
+    against the CPU's: the cheap CNNs' ``init_params`` and the reduced
+    LMs' ``init``, bit for bit."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.common.config import reduced
+    from repro_torch.launch import zoo
+    from repro_torch.models import cnn
+    from repro_torch.models import transformer as T
+
+    out = lm_logits_card_vs_cpu(
+        lm_config(n_layers=LM_CPU_LAYERS, dtype="float32"))
+    moe_arch = MOE_ARCHS[0][0]
+    out["moe"] = {"arch": moe_arch, **lm_logits_card_vs_cpu(
+        lm_config(moe_arch, n_layers=LM_CPU_LAYERS, dtype="float32"))}
 
     cnn_cfgs = [zoo.GENERIC_FAMILY["cheap1"][0]] + [
         dataclasses.replace(c, n_classes=7)
@@ -2254,21 +2648,24 @@ def lm_card_vs_cpu():
                                                         _flat_tree(b)))
         check(same, f"{c.name}: the card's threefry draw differs from the "
               f"CPU's")
-    small = reduced(lm_config())
-    a, b = (T.params_to_jax(T.init(small, 0, device=d))
-            for d in ("cuda", "cpu"))
-    check(all(np.array_equal(x, y) for x, y in zip(_flat_tree(a),
-                                                   _flat_tree(b))),
-          "the reduced LM's draw differs between the card and the CPU")
-    return {"layers": cfg.n_layers, "d_model": cfg.d_model,
-            "batch": LM_CPU_BATCH, "seq": LM_CPU_SEQ, "decode_steps": n,
-            "prefill_rel": prefill_rel, "decode_rel": decode_rel,
-            "init_draws_bitwise": [c.name for c in cnn_cfgs] + [small.name]}
+    smalls = [reduced(lm_config()), reduced(lm_config(moe_arch))]
+    for small in smalls:
+        a, b = (T.params_to_jax(T.init(small, 0, device=d))
+                for d in ("cuda", "cpu"))
+        check(all(np.array_equal(x, y) for x, y in zip(_flat_tree(a),
+                                                       _flat_tree(b))),
+              f"{small.name}: the draw differs between the card and the "
+              f"CPU")
+    out["init_draws_bitwise"] = [c.name for c in cnn_cfgs] + [
+        c.name for c in smalls]
+    return out
 
 
-def train_card_vs_cpu_lm():
-    """olmo-1b's width with ``LM_CPU_LAYERS`` layers in fp32 (remat on),
-    one init drawn on the card and copied to the CPU, the same batches of
+def train_card_vs_cpu_lm(cfg):
+    """``cfg`` in fp32 (remat on; olmo-1b's width with ``LM_CPU_LAYERS``
+    layers, and reduced moonshot-v1-16b-a3b, whose backward runs through
+    the router's gather and the dispatch on the card), one init drawn on
+    the card and copied to the CPU, the same batches of
     ``TRAIN_CPU_BATCH`` x ``TRAIN_CPU_SEQ`` tokens: the first step's
     gradients within 1e-5 of each leaf's largest |grad|, and
     ``TRAIN_CPU_STEPS`` steps of ``train`` on each device with losses
@@ -2285,7 +2682,6 @@ def train_card_vs_cpu_lm():
     from repro_torch.train import OptConfig, TrainConfig
     from repro_torch.train.train_loop import param_leaves, train
 
-    cfg = lm_config(n_layers=LM_CPU_LAYERS, dtype="float32")
     card = T.init(cfg, seed=0, device="cuda")
     cpu = T.tree_map(lambda x: x.to("cpu", copy=True), card)
     data = {d: lm_data(cfg, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, device=d)
@@ -2326,8 +2722,9 @@ def train_card_vs_cpu_lm():
     over = sum(int((x > 1e-6).sum()) for x in diffs)
     del card, cpu, grads
     torch.cuda.empty_cache()
-    return {"layers": cfg.n_layers, "d_model": cfg.d_model,
-            "dtype": cfg.dtype, "batch": TRAIN_CPU_BATCH,
+    return {"arch": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "batch": TRAIN_CPU_BATCH,
             "seq": TRAIN_CPU_SEQ, "steps": TRAIN_CPU_STEPS,
             "first_step_grad_rel": grad_rel, "loss_rel": loss_rel,
             "losses_card": [h["loss"] for h in hc],
@@ -2938,7 +3335,7 @@ def main():
               "a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, SRC)
-    from repro_torch.common.config import CHEAP_CNNS
+    from repro_torch.common.config import CHEAP_CNNS, reduced
     from repro_torch.common.device import resolve_device
     from repro_torch.data.video import get_stream
     from repro_torch.hopper import build, ops, ref
@@ -3104,9 +3501,17 @@ def main():
     dq["launches"] = archive["dequant_topk"]
     tk["launches"] = pipe["launches"]["topk"]
     tk["launches_multistream"] = multi["launches"]["topk"]
-    lm = lm_path(ops, peaks)
+    lm = lm_path(ops, peaks, lm_config())
     emit({"phase": "lm_path", "gpu": smi, **lm, "elapsed_s": elapsed()})
     fa["launches"] = lm["launches"]["flash_attention"]
+    moe = moe_path(ops, peaks)
+    emit({"phase": "moe_path", "gpu": smi, **moe, "elapsed_s": elapsed()})
+    fa["launches_moe_path"] = moe["launches"]["flash_attention"]
+    tk["launches_moe_path"] = moe["launches"]["topk"]
+    for arch, m in moe["models"].items():
+        own = m["prefill_flash_" + lm_config(arch).moe_dispatch]
+        tk["router"].setdefault("launches_per_prefill", {})[arch] = \
+            own["launches_per_call"]["topk"]
     trained = train_path(ops, peaks)
     emit({"phase": "train_path", "gpu": smi, **trained,
           "elapsed_s": elapsed()})
@@ -3120,7 +3525,12 @@ def main():
           "bgsub": bgsub_card_vs_cpu(gate_boxes, gate_bg),
           "selection": selection_card_vs_cpu(),
           "training": train_card_vs_cpu(), "lm": lm_card_vs_cpu(),
-          "lm_training": train_card_vs_cpu_lm(), "elapsed_s": elapsed()})
+          "lm_training": train_card_vs_cpu_lm(
+              lm_config(n_layers=LM_CPU_LAYERS, dtype="float32")),
+          "moe_training": train_card_vs_cpu_lm(
+              reduced(lm_config(MOE_ARCHS[0][0]), dtype="float32",
+                      remat=True)),
+          "elapsed_s": elapsed()})
     override = cnn.make_apply(cnn.build(mcfg, cnn.init_params(mcfg, 0), dev))
     override_cfg = IngestConfig(K=serve_args["K"], threshold=serve_args["T"])
     emit({"phase": "breakdown", "gpu": smi,

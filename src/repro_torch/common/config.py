@@ -42,8 +42,9 @@ class LMConfig:
     ``scan_layers``, ``train_microbatches``, ``prefill_batch_chunks``)
     are kept so configs copy verbatim; one card ignores them (the train
     loop takes its micro-batches from ``TrainConfig``, as the JAX
-    package's does). The MoE fields describe models whose slice is still
-    to come: ``models.transformer`` raises on ``moe=True``.
+    package's does). The MoE fields (``moe=True``) select
+    ``models.layers.moe`` in place of the dense MLP: GShard dispatch over
+    groups of ``moe_group_size`` tokens, in either ``moe_dispatch`` mode.
     """
 
     name: str

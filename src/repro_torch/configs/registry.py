@@ -1,11 +1,13 @@
 """Registry mapping --arch ids to their config modules: the ids whose
-families the port runs (the dense LMs). The JAX package's MoE, vision and
-diffusion ids come with their slices (ROADMAP)."""
+families the port runs (the decoder LMs, dense and MoE). The JAX
+package's vision and diffusion ids come with their slice (ROADMAP A13)."""
 from __future__ import annotations
 
 import importlib
 
 ARCH_IDS = [
+    "dbrx-132b",
+    "moonshot-v1-16b-a3b",
     "olmo-1b",
     "granite-34b",
 ]

@@ -1,15 +1,16 @@
 """LM training entry point: the port of ``repro.launch.train`` for the decoder
 LMs.
 
-Trains an arch of the port's registry (``olmo-1b``, ``granite-34b``;
-reduced or full config) on the JAX package's synthetic LM task with the
+Trains an arch of the port's registry (``olmo-1b``, ``granite-34b``,
+``moonshot-v1-16b-a3b``, ``dbrx-132b``; reduced or full config) on the
+JAX package's synthetic LM task with the
 whole substrate: AdamW and its schedule, gradient accumulation over
 micro-batches, gradient compression, checkpoint and restart, preemption
 handling. The weights are JAX's (``transformer.init(cfg, seed=0)``, the
 same threefry draw) and so are the tokens (``lm_data``: numpy's
 ``default_rng(seed)``), so both entry points print the same loss lines up to
-rounding. The JAX entry point's vision, DiT and MoE ids wait for their slices
-(ROADMAP A12, A13): the registry rejects them with its own error.
+rounding. The JAX entry point's vision and DiT ids wait for their slice
+(ROADMAP A13): the registry rejects them with its own error.
 
   python -m repro_torch.launch.train --arch olmo-1b --steps 20 --device cpu
   python -m repro_torch.launch.train --arch olmo-1b --full --steps 20 \\

@@ -1,6 +1,6 @@
-"""The neural-net layers the dense decoder LM runs: norms, rotary
-embeddings, GQA attention (prefill with causal/window masks, and one-token
-decode against a KV cache) and the dense MLP.
+"""The neural-net layers the decoder LM runs: norms, rotary embeddings,
+GQA attention (prefill with causal/window masks, and one-token decode
+against a KV cache), the dense MLP and the mixture-of-experts FFN.
 
 A port of the parts of ``repro.models.layers`` that ``models.transformer``
 reaches, with the JAX package's layouts at every public function:
@@ -9,14 +9,16 @@ weights (d_in, d_out), applied as ``x @ w``), activations (B, S, D), heads
 (B, S, H, dh). ``*_init`` draws through ``common.prng`` exactly as the JAX
 package draws through ``jax.random``. Left out: the mesh constraints (one
 card), the remat policies that save matrix products (``remat_policy``
-raises on them), MoE and the vision primitives.
+raises on them) and the vision primitives.
 
 Matrix products stay ``torch.matmul``/``einsum``, as the JAX package
-leaves them to XLA; the one kernel of this module's path is
-``hopper.ops.flash_attention`` on ``attn_impl="flash"``. Where the JAX
-package asks a product for fp32 results from low-precision inputs
-(``preferred_element_type=float32``), the port widens the inputs to fp32
-first: a product of two bf16 values is exact in fp32.
+leaves them to XLA; the kernels of this module's path are
+``hopper.ops.flash_attention`` on ``attn_impl="flash"`` and
+``hopper.ops.topk``, the MoE router's top-k (``lax.top_k`` in the JAX
+package: ties to the lowest expert, which ``torch.topk`` does not keep).
+Where the JAX package asks a product for fp32 results from low-precision
+inputs (``preferred_element_type=float32``), the port widens the inputs
+to fp32 first: a product of two bf16 values is exact in fp32.
 """
 from __future__ import annotations
 
@@ -281,3 +283,139 @@ def mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         h = F.gelu(h, approximate="tanh")
     return h @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (GShard-style grouped dispatch)
+# ---------------------------------------------------------------------------
+
+def moe_init(key: torch.Tensor, d_model: int, d_ff: int, n_experts: int,
+             dtype: torch.dtype) -> dict:
+    """The router ``gate`` (D, E) in fp32 whatever ``dtype`` is, and the
+    SwiGLU experts ``wi``/``wg`` (E, D, F) and ``wo`` (E, F, D), drawn in
+    fp32 and cast: the JAX package's ``moe_init``, key for key."""
+    ks = prng.split(key, 4)
+    s = 1.0 / math.sqrt(d_model)
+
+    def ew(k, a, b, sc):
+        return (prng.normal(k, (n_experts, a, b)) * sc).to(dtype)
+
+    return {
+        "gate": dense_init(ks[0], d_model, n_experts, dtype=torch.float32),
+        "wi": ew(ks[1], d_model, d_ff, s),
+        "wg": ew(ks[2], d_model, d_ff, s),
+        "wo": ew(ks[3], d_ff, d_model, 1.0 / math.sqrt(d_ff)),
+    }
+
+
+def moe_groups(n_tokens: int, group_size: int, top_k: int,
+               capacity_factor: float, n_experts: int):
+    """(group size gs, groups G, capacity C) of ``n_tokens`` tokens: gs is
+    ``group_size`` (at most ``n_tokens``) halved until it divides them,
+    and C = ceil(gs·k·cf/E), at least 1 and at most gs."""
+    gs = min(group_size, n_tokens)
+    while n_tokens % gs:
+        gs //= 2
+    C = max(1, int(math.ceil(gs * top_k * capacity_factor / n_experts)))
+    return gs, n_tokens // gs, min(C, gs)
+
+
+def moe_route(gate: torch.Tensor, xg: torch.Tensor, top_k: int,
+              capacity: int):
+    """The router of ``moe`` on grouped tokens xg (G, gs, D): returns
+    ``(probs (G, gs, E) fp32, idx (G, gs, k) int64, gate_vals (G, gs, k)
+    fp32, within (G, gs, k) int64, keep (G, gs, k) bool)``.
+
+    fp32 logits ``xg @ gate`` and their softmax; each token's k experts
+    by probability, descending, ties to the lowest expert index (JAX's
+    ``lax.top_k``; ``torch.topk`` keeps no tie rule), ranked by
+    ``hopper.ops.topk``: one launch over the (G·gs, E) probabilities on
+    the card. The gate values are gathered from ``probs`` so that
+    gradients reach the router, renormalised over the k, and zeroed where
+    the token is dropped. Slots: choice 0 of every token in the group
+    before choice 1, and so on; ``within`` is the choice's position in
+    its expert's buffer, ``keep`` = ``within < capacity``."""
+    G, gs, _ = xg.shape
+    logits = torch.matmul(xg.float(), gate)
+    probs = torch.softmax(logits, dim=-1)
+    E = probs.shape[-1]
+    _, idx = ops.topk(probs.detach().reshape(G * gs, E), top_k)
+    idx = idx.long().reshape(G, gs, top_k)
+    gate_vals = probs.gather(-1, idx)
+    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+    # priority order (G, k·gs): choice 0 of all tokens first. The one-hot
+    # is laid out (G, E, k·gs), so that the running count is a scan along
+    # contiguous rows (over the middle axis of (G, k·gs, E), CUDA's scan
+    # took 2 ms a layer at moonshot's prefill)
+    order = idx.transpose(1, 2).reshape(G, 1, top_k * gs)
+    experts = torch.arange(E, device=idx.device)[None, :, None]
+    oh = (order == experts).to(torch.int32)
+    pos = (oh.cumsum(-1, dtype=torch.int32) - oh).gather(1, order)
+    within = pos.reshape(G, top_k, gs).transpose(1, 2).long()
+    keep = within < capacity
+    return probs, idx, gate_vals * keep, within, keep
+
+
+def moe(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
+        group_size: int, capacity_factor: float,
+        dispatch: str = "einsum"):
+    """Mixture-of-experts FFN. x: (B, S, D) -> (y, aux_loss).
+
+    The tokens are cut into G groups of gs (``moe_groups``); each group
+    routes (``moe_route``) into per-expert buffers of C slots, the
+    experts run SwiGLU on their (G, C) slots, and each token sums its
+    kept experts' outputs weighted by its gate values. Tokens past an
+    expert's capacity are dropped, as in the JAX package (a decode step
+    of 4 tokens has C = 1). ``aux_loss`` is the Switch/GShard
+    load-balancing loss, E·Σ mean(probs)·mean(one_hot(choice 0)).
+
+    ``dispatch="einsum"``: the (G, gs, E, C) dispatch and combine tensors
+    and GShard's two einsums. A token's k choices go to k different
+    experts, so each (e, c) slot of a token holds at most one choice and
+    both tensors are written by indexing rather than as the JAX
+    package's (G, gs, k, E, C) product summed over k; with one nonzero
+    term per output, the dispatch product is exact. ``"scatter"``: the
+    tokens added into an (E, G, C + 1, D) buffer whose last slot takes
+    the dropped ones and is cut off (JAX's ``.at[].add(mode="drop")``),
+    and gathered back at ``min(within, C - 1)`` with their gate values.
+    The expert products stay ``torch.einsum``, as the JAX package leaves
+    them to XLA."""
+    B, S, D = x.shape
+    gs, G, C = moe_groups(B * S, group_size, top_k, capacity_factor,
+                          n_experts)
+    xg = x.reshape(G, gs, D)
+    probs, idx, gate_vals, within, keep = moe_route(params["gate"], xg,
+                                                    top_k, C)
+    me = probs.mean((0, 1))
+    ce = F.one_hot(idx[..., 0], n_experts).float().mean((0, 1))
+    aux = n_experts * (me * ce).sum()
+
+    g_ix = torch.arange(G, device=x.device)[:, None, None]
+    if dispatch == "einsum":
+        s_ix = torch.arange(gs, device=x.device)[None, :, None]
+        c_ix = within.clamp(max=C - 1)     # a dropped choice writes 0
+        at = (g_ix, s_ix, idx, c_ix)
+        disp = x.new_zeros((G, gs, n_experts, C)).index_put(
+            at, keep.to(x.dtype))
+        comb = x.new_zeros((G, gs, n_experts, C)).index_put(
+            at, gate_vals.to(x.dtype))
+        exp_in = torch.einsum("gsec,gsd->egcd", disp, xg)
+    elif dispatch == "scatter":
+        c_ix = torch.where(keep, within, C)
+        exp_in = x.new_zeros((n_experts, G, C + 1, D)).index_put(
+            (idx, g_ix, c_ix), xg[:, :, None, :].expand(G, gs, top_k, D),
+            accumulate=True)[:, :, :C]
+    else:
+        raise ValueError(f"dispatch must be 'einsum' or 'scatter', got "
+                         f"{dispatch!r}")
+
+    h = torch.einsum("egcd,edf->egcf", exp_in, params["wi"])
+    hg = torch.einsum("egcd,edf->egcf", exp_in, params["wg"])
+    exp_out = torch.einsum("egcf,efd->egcd", F.silu(hg) * h, params["wo"])
+
+    if dispatch == "einsum":
+        y = torch.einsum("egcd,gsec->gsd", exp_out, comb)
+    else:
+        picked = exp_out[idx, g_ix, within.clamp(max=C - 1)]
+        y = (picked * gate_vals[..., None].to(x.dtype)).sum(2)
+    return y.reshape(B, S, D), aux

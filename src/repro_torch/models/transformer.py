@@ -1,11 +1,11 @@
-"""Decoder-only LM (dense, GQA, rotary) with a prefill path and a KV-cache
-decode path: a port of ``repro.models.transformer`` for one card.
+"""Decoder-only LM (dense and MoE, GQA, rotary) with a prefill path and a
+KV-cache decode path: a port of ``repro.models.transformer`` for one card.
 
 Params layout, the JAX package's (leaves under "layers" are stacked on a
 leading L axis), as a dictionary of tensors:
   tok_embed (V, D)
   layers/ln1/..., layers/attn/{wq,wk,wv,wo}, layers/ln2/...,
-  layers/mlp/{wi,wg,wo}
+  layers/mlp/{wi,wg,wo} or layers/moe/{gate,wi,wg,wo} (gate fp32)
   final_ln/..., head/w (D, V) unless the embeddings are tied
 
 ``init(cfg, seed)`` draws JAX's ``init(PRNGKey(seed), cfg)`` through
@@ -16,8 +16,11 @@ there is no mesh on one card. ``loss_fn`` is the training objective;
 when gradients are wanted, ``cfg.remat`` wraps each layer in an
 activation checkpoint (its input saved, the rest recomputed in the
 backward pass), as the JAX package's ``jax.checkpoint`` does; serving
-runs without one. Micro-batches belong to ``train.train_loop``. MoE
-configs raise: their slice is still to come.
+runs without one. Micro-batches belong to ``train.train_loop``. An MoE
+config (``cfg.moe``) runs ``layers.moe`` in place of the MLP in
+``forward`` and ``decode_step``; ``forward`` returns the sum of its
+layers' load-balancing losses, which ``decode_step`` drops, as the JAX
+package does.
 
 ``attn_impl`` picks the attention of ``forward``/``prefill``: ``"einsum"``
 (the default, what the JAX package's LM computes) or ``"flash"``, the
@@ -38,17 +41,12 @@ from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 
 
-def _check(cfg: LMConfig):
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP)")
-
-
 def init(cfg: LMConfig, seed: int = 0, device: DeviceLike = "cuda") -> dict:
     """Random parameters on ``device``: the JAX package's
     ``init(jax.random.PRNGKey(seed), cfg)``, key for key and leaf for leaf
-    (its ``vmap`` over the layer keys is one draw per layer key)."""
-    _check(cfg)
+    (its ``vmap`` over the layer keys is one draw per layer key). Each
+    layer's draw is written into the stacked leaves as it is made, so
+    the card holds the weights once, plus one layer's draw."""
     dev = resolve_device(device)
     dt = L.compute_dtype(cfg.dtype)
     ks = prng.split(prng.key(seed, dev), 4)
@@ -56,18 +54,30 @@ def init(cfg: LMConfig, seed: int = 0, device: DeviceLike = "cuda") -> dict:
 
     def layer_init(k):
         k1, k2 = prng.split(k)
-        return {
+        p = {
             "ln1": L.norm_init(cfg.norm, cfg.d_model, dev),
             "attn": L.attn_init(k1, cfg.d_model, cfg.n_heads,
                                 cfg.n_kv_heads, dt),
             "ln2": L.norm_init(cfg.norm, cfg.d_model, dev),
-            "mlp": L.mlp_init(k2, cfg.d_model, cfg.d_ff, cfg.mlp_act, dt),
         }
+        if cfg.moe:
+            p["moe"] = L.moe_init(k2, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                  dt)
+        else:
+            p["mlp"] = L.mlp_init(k2, cfg.d_model, cfg.d_ff, cfg.mlp_act, dt)
+        return p
 
-    per_layer = [layer_init(k) for k in prng.split(ks[1], cfg.n_layers)]
+    stacked = None
+    for i, k in enumerate(prng.split(ks[1], cfg.n_layers)):
+        p = layer_init(k)
+        if stacked is None:
+            stacked = tree_map(
+                lambda t: t.new_empty((cfg.n_layers,) + t.shape), p)
+        _write_layer(stacked, p, i)
+        del p                   # the next layer's draw runs without it
     params = {
         "tok_embed": emb,
-        "layers": _stack(per_layer),
+        "layers": stacked,
         "final_ln": L.norm_init(cfg.norm, cfg.d_model, dev),
     }
     if not cfg.tie_embeddings:
@@ -76,11 +86,13 @@ def init(cfg: LMConfig, seed: int = 0, device: DeviceLike = "cuda") -> dict:
     return params
 
 
-def _stack(trees: list) -> dict:
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _write_layer(stacked: dict, layer: dict, i: int):
+    """Copies one layer's tree into row ``i`` of the stacked tree."""
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            _write_layer(stacked[k], v, i)
+        else:
+            stacked[k][i].copy_(v)
 
 
 def _unstack(tree: dict, n: int) -> list:
@@ -112,13 +124,15 @@ def tree_map(fn, tree: dict) -> dict:
 def params_from_jax(tree: dict, cfg: LMConfig,
                     device: DeviceLike = "cuda") -> dict:
     """A JAX-layout parameter tree (numpy or JAX arrays, bf16 included) as
-    the port's dictionary on ``device``: norm parameters fp32, every matrix
-    in the config's dtype, as the JAX package's ``init`` lays them out."""
+    the port's dictionary on ``device``: norm parameters and the MoE
+    router's ``gate`` fp32, every other matrix in the config's dtype, as
+    the JAX package's ``init`` lays them out."""
     dev = resolve_device(device)
     dt = L.compute_dtype(cfg.dtype)
 
     def conv(path, x):
-        dtype = torch.float32 if path[-1] in ("scale", "bias") else dt
+        fp32 = path[-1] in ("scale", "bias") or path[-2:] == ("moe", "gate")
+        dtype = torch.float32 if fp32 else dt
         return torch.from_numpy(np.array(x, np.float32)).to(dev, dtype)
 
     def walk(path, t):
@@ -135,8 +149,19 @@ def params_to_jax(params: dict) -> dict:
     return tree_map(lambda t: t.detach().float().cpu().numpy(), params)
 
 
+def _ffn(cfg: LMConfig, p: dict, h: torch.Tensor):
+    """The layer's MLP, or its MoE FFN: ``(out, aux)``."""
+    if cfg.moe:
+        return L.moe(p["moe"], h, n_experts=cfg.n_experts,
+                     top_k=cfg.moe_top_k, group_size=cfg.moe_group_size,
+                     capacity_factor=cfg.moe_capacity_factor,
+                     dispatch=cfg.moe_dispatch)
+    return L.mlp(p["mlp"], h, cfg.mlp_act), None
+
+
 def _layer(cfg: LMConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
-           attn_impl: str) -> torch.Tensor:
+           attn_impl: str):
+    """One layer: ``(x, aux)``, aux None for a dense layer."""
     h = L.apply_norm(cfg.norm, p["ln1"], x)
     h = L.multihead_attention(
         p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -146,7 +171,8 @@ def _layer(cfg: LMConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
         scores_dtype=L.compute_dtype(cfg.attn_scores_dtype))
     x = x + h
     h = L.apply_norm(cfg.norm, p["ln2"], x)
-    return x + L.mlp(p["mlp"], h, cfg.mlp_act)
+    h, aux = _ffn(cfg, p, h)
+    return x + h, aux
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
@@ -162,9 +188,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
             last_logit_only: bool = False, attn_impl: str = "einsum"):
     """tokens: (B, S) int -> (logits (B, S, V) fp32, aux_loss).
 
-    ``last_logit_only`` (prefill serving): the vocab projection runs on the
-    final position only."""
-    _check(cfg)
+    ``aux_loss`` is the sum of the MoE layers' load-balancing losses (0
+    for a dense LM). ``last_logit_only`` (prefill serving): the vocab
+    projection runs on the final position only."""
     dt = L.compute_dtype(cfg.dtype)
     S = tokens.shape[1]
     x = params["tok_embed"][tokens].to(dt)
@@ -173,17 +199,21 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
              and any(t.requires_grad for t in _leaves(params)))
     if remat:
         L.remat_policy(cfg.remat_policy)     # "nothing": save layer inputs
+    auxs = []
     for p in _unstack(params["layers"], cfg.n_layers):
         if remat:
             # the layers draw no random numbers: no RNG state to replay
-            x = checkpoint(_layer, cfg, p, x, positions, attn_impl,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, aux = checkpoint(_layer, cfg, p, x, positions, attn_impl,
+                                use_reentrant=False,
+                                preserve_rng_state=False)
         else:
-            x = _layer(cfg, p, x, positions, attn_impl)
+            x, aux = _layer(cfg, p, x, positions, attn_impl)
+        auxs.append(aux)
     x = L.apply_norm(cfg.norm, params["final_ln"], x)
     if last_logit_only:
         x = x[:, -1:, :]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = (torch.stack(auxs).sum() if cfg.moe else
+           torch.zeros((), dtype=torch.float32, device=x.device))
     return _logits(params, x, cfg), aux
 
 
@@ -231,8 +261,10 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
 
     Returns (logits (B, 1, V) fp32, cache). The cache is updated in place
     at slot ``cache_len`` of every layer and returned (the JAX package
-    returns a new one). Attention is linear in the cache length."""
-    _check(cfg)
+    returns a new one). Attention is linear in the cache length. An MoE
+    layer routes the B tokens of the step as one group (C = 1 at moonshot's
+    B = 4, so tokens are dropped, as in the JAX package) and its aux loss
+    is dropped."""
     dt = L.compute_dtype(cfg.dtype)
     x = params["tok_embed"][token].to(dt)
     for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
@@ -244,6 +276,6 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
             window=cfg.window if cfg.attention == "window" else 0)
         x = x + h
         h = L.apply_norm(cfg.norm, p["ln2"], x)
-        x = x + L.mlp(p["mlp"], h, cfg.mlp_act)
+        x = x + _ffn(cfg, p, h)[0]
     x = L.apply_norm(cfg.norm, params["final_ln"], x)
     return _logits(params, x, cfg), cache

@@ -9,7 +9,9 @@ Without a card every test skips. Indices, ``matched`` and match decisions
 must be exact; squared distances agree to rtol 1e-5 (fp32 dot products
 summed in another order; atol 1e-4 where a distance cancels to ~0) and
 mean pixel differences to rtol 1e-6. ``dequant_topk``'s and ``topk``'s
-values and indices must be exact, and so must the saved bytes of the
+values and indices must be exact (the MoE router's top-k at its shapes
+too; ``layers.moe`` on the card routes as on the CPU and its output
+agrees to 1e-5), and so must the saved bytes of the
 fused pipeline against the staged path on the card, and ``motion_gate``'s
 and ``motion_gate_frames``' new background, tile means and hot masks
 (bitwise: the EMA is rounded step by step and the tile sums are exact in
@@ -430,6 +432,86 @@ def test_topk_kernel_ties_empty_and_errors(cuda):
         ops.topk(torch.zeros(2, 8, device=cuda).T, 1)   # not contiguous
     with pytest.raises(ValueError):
         ops.topk(torch.zeros(2, 8, dtype=torch.float16, device=cuda), 1)
+
+
+def _router_probs(G, E, seed, levels=None):
+    """Softmax rows of N(0, 1) logits, as the MoE router's; with
+    ``levels``, logits rounded to that many levels per unit, so that
+    equal probabilities tie."""
+    logits = np.random.default_rng(seed).normal(size=(G, E))
+    if levels is not None:
+        logits = np.round(logits * levels) / levels
+    p = np.exp(logits - logits.max(1, keepdims=True))
+    return (p / p.sum(1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,E,k,levels", [
+    (8192, 64, 6, None),                 # moonshot's prefill: 4 x 2048
+    (8192, 64, 6, 2),                    # ties in every row
+    (4, 64, 6, None),                    # moonshot's decode step
+    (4, 64, 6, 1),
+    (8192, 16, 4, None),                 # dbrx's prefill
+])
+def test_topk_kernel_router_shapes(cuda, B, E, k, levels):
+    """The MoE router's top-k: one launch per call, ties to the lowest
+    expert, against the plain version."""
+    x = _router_probs(B, E, B + E, levels)
+    x[B // 2] = 1.0 / E                          # every expert tied
+    i = _topk_pair(_t(x, cuda), k)
+    assert i[B // 2].tolist() == list(range(k))
+
+
+def _margin(probs, k):
+    """The smallest gap between consecutive values among each row's
+    k + 1 largest (a router's probabilities: a gap this small decides
+    both which k experts are chosen and in what order, and the order
+    sets the slots). Shared with ``tests/test_torch_moe.py``."""
+    srt = torch.sort(probs, dim=-1, descending=True).values[..., :k + 1]
+    return float((srt[..., :-1] - srt[..., 1:]).min())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["einsum", "scatter"])
+def test_moe_layer_on_the_card_equals_cpu(cuda, dispatch):
+    """``layers.moe`` at moonshot's router shape (64 experts, top-6, a
+    group of 1024 tokens, two groups) in fp32 on the card and on the CPU:
+    one ``topk`` launch a call on the card; the same choices, slots and
+    capacity cut, asserted on inputs whose top-k margin exceeds the
+    card's and the CPU's router differences; the gate values within 1e-5
+    relative (an fp32 softmax of logits summed in another order), y
+    within 1e-5 of its largest |value|, aux within 1e-6."""
+    from repro_torch.common import prng
+    from repro_torch.common.device import resolve_device
+    from repro_torch.models import layers as L
+    dev = resolve_device("cuda")                 # TF32 off
+    D, F, E, k = 256, 128, 64, 6
+    p = L.moe_init(prng.key(0), D, F, E, torch.float32)
+    pd = {n: v.to(dev) for n, v in p.items()}
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(2, 1024, D)).astype(np.float32))
+    kw = dict(n_experts=E, top_k=k, group_size=1024, capacity_factor=1.25,
+              dispatch=dispatch)
+    before = ops.LAUNCHES["topk"]
+    y, aux = L.moe(pd, x.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["topk"] == before + 1
+    yc, auxc = L.moe(p, x, **kw)
+    gs, G, C = L.moe_groups(2048, 1024, k, 1.25, E)
+    card = L.moe_route(pd["gate"], x.to(dev).reshape(G, gs, D), k, C)
+    cpu = L.moe_route(p["gate"], x.reshape(G, gs, D), k, C)
+    noise = float((card[0].cpu() - cpu[0]).abs().max())
+    assert _margin(cpu[0], k) > noise
+    for a, b in zip(card[1:], cpu[1:]):
+        if a.dtype == torch.float32:             # the gate values
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-5, atol=0)
+        else:
+            assert torch.equal(a.cpu(), b)
+    assert not bool(cpu[4].all())                # some tokens are dropped
+    err = float((y.cpu() - yc).abs().max() / yc.abs().max())
+    assert err <= 1e-5, err
+    assert abs(float(aux) - float(auxc)) <= 1e-6
 
 
 @pytest.mark.cuda

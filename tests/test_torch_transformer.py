@@ -50,7 +50,8 @@ def _close(got, want, atol=ATOL):
                                rtol=atol)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "granite-34b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "granite-34b", "dbrx-132b",
+                                  "moonshot-v1-16b-a3b"])
 def test_configs_equal_jax_field_for_field(arch):
     assert dataclasses.asdict(get_arch(arch)) == \
         dataclasses.asdict(jget_arch(arch))
@@ -69,7 +70,8 @@ def test_full_olmo_1b_parameter_count():
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.head_dim, cfg.d_ff, cfg.vocab_size) == \
         (16, 2048, 16, 16, 128, 8192, 50304)
-    assert ARCH_IDS == ["olmo-1b", "granite-34b"]
+    assert ARCH_IDS == ["dbrx-132b", "moonshot-v1-16b-a3b", "olmo-1b",
+                        "granite-34b"]
 
 
 def test_moe_counts_and_reduced_raise_outside_the_lm_family():
@@ -80,12 +82,19 @@ def test_moe_counts_and_reduced_raise_outside_the_lm_family():
     assert moe.n_params() == jmoe.n_params()
     assert moe.n_active_params() == jmoe.n_active_params()
     assert reduced(moe).n_experts == 4
-    with pytest.raises(NotImplementedError):
-        T.init(reduced(moe), 0, "cpu")
+    p = T.init(reduced(moe), 0, "cpu")          # MoE layers build
+    assert set(p["layers"]) == {"ln1", "attn", "ln2", "moe"}
+    assert p["layers"]["moe"]["wi"].shape == (2, 4, 64, 128)
     with pytest.raises(TypeError):
         reduced(object())
+    for arch, n, active in (("dbrx-132b", 131596523520, 36469708800),
+                            ("moonshot-v1-16b-a3b", 28057995264,
+                             3974301696)):
+        cfg = get_arch(arch)                    # the MoE ids build
+        assert cfg.moe and (cfg.n_params(), cfg.n_active_params()) == \
+            (n, active)
     with pytest.raises(KeyError):
-        get_arch("dbrx-132b")
+        get_arch("vit-l16")
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "granite-34b"])
