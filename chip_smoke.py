@@ -123,7 +123,20 @@ Phases, each fatal on failure (no phase's failure is caught):
    the same 3 steps twice bitwise, 6 steps uninterrupted against 3 with
    a checkpoint and a resumed run to 6, bitwise, a bf16 leaf restored
    bitwise, a fake preemption at step 2 checkpointing and returning,
-   checkpoint write and restore times;
+   checkpoint write and restore times. Last, the vision and diffusion
+   models at full width in bf16 (``vision_path``, one line per model):
+   vit-l16 (init, forward at serve_b128 and at cls_384 with its pos table
+   resized 14 -> 24, ``features_only``, then ``launch.train --arch
+   vit-l16 --full`` at batch 32 with remat), deit-b (forward at batch
+   128), dit-b2 (the DDIM sampler at gen_fast: 16 latents of 64 x 64 x
+   4, 1024 tokens, 4 steps; then ``launch.train --arch dit-b2 --full`` at
+   256 px) and efficientnet-b7 (eval forward at 600 px, batch 8, then
+   ``launch.train --arch efficientnet-b7 --full``): images/s or ms per
+   sampler step, ms per training step, peak GB, the bound from the
+   function's operations and bytes (every product on the bf16 tensor
+   cores, 3 passes a training step) with the code's extra work beside it
+   as ms at peak (the fp32 q.k^T, remat's recompute); none of the six
+   kernels launches;
 4. card against CPU: the 120 s of frames through
    ``BackgroundSubtractor(device="cpu")`` give the card's boxes on every
    frame and its final background bit for bit; on a 60 s cut, spec1-spec3
@@ -150,7 +163,10 @@ Phases, each fatal on failure (no phase's failure is caught):
    trained 3 steps of 1 x 64 tokens from one init on each device: the
    first step's gradients within 1e-5 of each leaf's largest |grad|, the
    losses within 1e-5 relative, the parameters within 2 lr per step
-   (``train_card_vs_cpu_lm`` says why);
+   (``train_card_vs_cpu_lm`` says why); reduced vit-s16, deit-b,
+   efficientnet-b7 and dit-b2 in fp32 (``vision_card_vs_cpu``): the draws
+   bitwise, forward outputs, batch-norm state, first-step gradients and
+   DiT's ``sample`` within 1e-5;
 5. where the ingest time goes: wall time per stage on a 120 s cut, for
    the override path's cheap1 (K=1000, T=0.4) and for the default path's
    chosen model at its K and T; then each path's ``pixel_match`` and
@@ -180,6 +196,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
@@ -222,6 +239,15 @@ LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_SEQ = 2, 2, 256
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_MB = 8, 2048, 20, 2
 RESUME_LAYERS, RESUME_BATCH, RESUME_SEQ = 2, 4, 512
 TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS = 1, 64, 3
+# The vision path, each model at full width in its config's bf16: vit-l16
+# at serve_b128 and cls_384 (the JAX package's shape cells) and trained
+# at batch 32 with remat, deit-b at batch 128, dit-b2's sampler at
+# gen_fast and training at 256 px, efficientnet-b7 at 600 px; each
+# forward timed over VISION_ITERS calls, each training VISION_TRAIN_STEPS
+# steps (EfficientNet's EFF_TRAIN_STEPS)
+VIT_TRAIN_BATCH, DEIT_BATCH, DIT_TRAIN_BATCH = 32, 128, 32
+EFF_BATCH, EFF_TRAIN_BATCH, EFF_TRAIN_STEPS = 8, 8, 4
+VISION_TRAIN_STEPS, VISION_ITERS = 6, 10
 
 
 def emit(obj):
@@ -2564,6 +2590,387 @@ def train_resume():
 
 
 # ---------------------------------------------------------------------------
+# phase 3: the vision and diffusion models (ViT, DeiT, DiT, EfficientNet)
+# ---------------------------------------------------------------------------
+
+def vision_config(arch, **overrides):
+    """The full-width config of a vision or DiT arch (its config's bf16)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch), **overrides)
+
+
+def vit_work(cfg, batch, res, code=False):
+    """The work of one ViT/DeiT forward of ``batch`` images at ``res`` by
+    category, each (bf16 tensor-core FLOP, fp32 FLOP), as
+    ``prefill_work`` counts it. The function's (``code`` False): the patch
+    embedding, per layer the four attention projections and the two MLP
+    products (2 FLOP per weight and token), q.k^T and p.v over all T^2
+    token pairs, and the head(s) on the CLS (and distillation) token,
+    every product on the bf16 tensor cores (the JAX package computes
+    q.k^T as a bf16 product with fp32 results). The code's (``code``
+    True): the same with q.k^T in fp32, since the einsum route widens q
+    and k to fp32 (TF32 off)."""
+    D, L = cfg.d_model, cfg.n_layers
+    n_p = (res // cfg.patch) ** 2
+    T = cfg.n_tokens(res)
+    heads = 2 if cfg.distill_token else 1
+    qk = batch * L * 2 * T * T * D
+    return {"patch": (batch * 2 * n_p * cfg.patch ** 2 * cfg.in_channels
+                      * D, 0),
+            "layers": (batch * L * 2 * T * (4 * D * D + 2 * D * cfg.d_ff),
+                       0),
+            "attention": (qk, qk) if code else (2 * qk, 0),
+            "head": (batch * heads * 2 * D * cfg.n_classes, 0)}
+
+
+def dit_work(cfg, batch, img_res, code=False):
+    """The work of one DiT forward of ``batch`` latents of ``img_res / 8``
+    pixels a side (N tokens) by category, as ``vit_work`` counts it: the
+    patch embedding, the timestep MLP, per layer the adaLN product, the
+    projections and the MLP, q.k^T and p.v over N^2 pairs (q.k^T in fp32
+    with ``code``), the final adaLN and output products."""
+    D, L, N = cfg.d_model, cfg.n_layers, cfg.n_tokens(img_res)
+    p2c = cfg.patch ** 2 * cfg.latent_channels
+    qk = batch * L * 2 * N * N * D
+    return {"embed": (batch * (2 * N * p2c * D + 2 * (256 * D + D * D)), 0),
+            "layers": (batch * L * (2 * D * 6 * D
+                                    + 2 * N * (4 * D * D + 2 * D * cfg.d_ff)),
+                       0),
+            "attention": (qk, qk) if code else (2 * qk, 0),
+            "final": (batch * (2 * D * 2 * D + 2 * N * D * 2 * p2c), 0)}
+
+
+def effnet_work(cfg, batch, res, code=False):
+    """The work of one EfficientNet forward: the model's own analytic count
+    (``flops_per_image``), every convolution and product at the bf16
+    tensor-core rate; the code computes the same."""
+    from repro_torch.models import efficientnet as E
+    return {"convs": (batch * E.flops_per_image(cfg, res), 0)}
+
+
+def vision_bound(work, nbytes, peaks, passes=1, code_passes=None):
+    """The bound of ``passes`` times the function's ``work`` (a ``*_work``
+    function of (code,)), the larger of its operations at the card's
+    peak rates and ``nbytes`` at its memory rate: ``{"bound_ms",
+    "bound_by", "tflop"}``, one bound per model. Beside it the code's
+    extra work as ms at peak (``code_extra_ms_at_peak``): a category the
+    code computes at a slower precision, over ``passes``, and
+    ``remat_recompute``, the forward that ``code_passes`` (remat: 4)
+    runs beyond ``passes`` (a training step: 3)."""
+    fn, code = work(False), work(True)
+    code_passes = code_passes or passes
+    ops_s = passes * work_s(fn, peaks)
+    bytes_s = nbytes / peaks["bytes"]
+    extra = {k: 1e3 * passes * (work_s({k: v}, peaks)
+                                - work_s({k: fn[k]}, peaks))
+             for k, v in code.items() if v != fn[k]}
+    if code_passes > passes:
+        extra["remat_recompute"] = (1e3 * (code_passes - passes)
+                                    * work_s(code, peaks))
+    return {"bound_ms": 1e3 * max(ops_s, bytes_s),
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "tflop": passes * sum(b + f for b, f in fn.values()) / 1e12,
+            "code_tflop": code_passes * sum(b + f for b, f in code.values())
+            / 1e12,
+            "code_extra_ms_at_peak": extra}
+
+
+def tree_bytes(tree):
+    return sum(x.numel() * x.element_size() for x in _flat_tree(tree))
+
+
+def train_bytes(n_params, param_bytes):
+    """The least bytes of a training step: each weight read and written,
+    its fp32 gradient written and read, AdamW's two fp32 moments read and
+    written."""
+    return n_params * (2 * param_bytes + 2 * 4 + 4 * 4)
+
+
+def synced_train(ops, argv, init_fn):
+    """``repro_torch.launch.train.main(argv)`` on the card, each step
+    between two synchronisations of the card (``make_train_step``
+    wrapped) and the model's ``init`` (``init_fn``, a (module, name)
+    pair) timed likewise: ``(report, init_s, step walls s, peak bytes,
+    launches)``, the launch counters as they stand after it."""
+    import torch
+    from repro_torch.launch import train as launch
+    from repro_torch.train import train_loop
+
+    walls, init_s = [], []
+    make = train_loop.make_train_step
+    mod, name = init_fn
+    init = getattr(mod, name)
+
+    def synced(fn, out):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+            return r
+        return wrapper
+
+    train_loop.make_train_step = lambda *a, **k: synced(make(*a, **k),
+                                                        walls)
+    setattr(mod, name, synced(init, init_s))
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        report = launch.main(argv)
+    finally:
+        train_loop.make_train_step = make
+        setattr(mod, name, init)
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    return report, init_s[0], walls, peak, dict(ops.LAUNCHES)
+
+
+def train_entry(ops, peaks, arch, batch, steps, init_fn, work, extra=()):
+    """One arch trained through the entry point at full width (``--full
+    --batch B --steps N``): device ms/step (median of steps 2 to N), the
+    loss finite at every logged step, its bound (3 x the function's
+    forward ``work``, a forward and a backward of twice its work;
+    ``train_bytes``) with the code's extra work beside it (remat runs a
+    fourth pass), peak memory, and no kernel launched since the vision
+    path began."""
+    import math
+    import statistics
+    argv = ["--arch", arch, "--full", "--steps", str(steps), "--batch",
+            str(batch), "--device", "cuda", *extra]
+    report, init_s, walls, peak, launches = synced_train(ops, argv,
+                                                         init_fn)
+    cfg = vision_config(arch)
+    check(sum(launches.values()) == 0,
+          f"{arch} training launched a kernel: {launches}")
+    hist = report["history"]
+    check(len(walls) == steps and hist[-1]["step"] == steps
+          and all(math.isfinite(h["loss"]) for h in hist),
+          f"{arch} training: {[(h['step'], h['loss']) for h in hist]}")
+    med = statistics.median(walls[1:])
+    # EfficientNet checkpoints nothing (neither package reads its remat)
+    code_passes = 4 if cfg.remat and not hasattr(cfg, "width_mult") else 3
+    bound = vision_bound(work, train_bytes(report["params"], 2), peaks, 3,
+                         code_passes)
+    return {"argv": argv, "params": report["params"], "init_s": init_s,
+            "batch": batch, "device_ms_per_step": 1e3 * med,
+            "device_ms_per_step_all": [1e3 * w for w in walls],
+            "images_per_s": batch / med, "code_passes": code_passes,
+            "bound_ms_per_step": bound["bound_ms"],
+            "bound_by": bound["bound_by"],
+            "bound_share": bound["bound_ms"] / (1e3 * med),
+            "tflop": bound["tflop"], "code_tflop": bound["code_tflop"],
+            "code_extra_ms_at_peak": bound["code_extra_ms_at_peak"],
+            "peak_memory_gb": peak / 1e9,
+            "losses": [(h["step"], h["loss"]) for h in hist],
+            "launches": launches}
+
+
+def _images(batch, res, seed, dev):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(batch, res, res, 3, generator=g, device=dev)
+
+
+def forward_entry(fn, peaks, work, nbytes, batch, out_check, iters):
+    """A forward timed with CUDA events (``iters`` calls after 2 warm-up
+    calls, no gradients), its output checked, against its bound
+    (``vision_bound``); the achieved rate counts the function's work."""
+    import torch
+    with torch.no_grad():
+        out = fn()
+        out_check(out)
+        del out
+        ms = time_ms(fn, iters=iters, warmup=2)
+    bound = vision_bound(work, nbytes, peaks)
+    return {"batch": batch, "ms": ms, "images_per_s": 1e3 * batch / ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "tflop": bound["tflop"], "code_tflop": bound["code_tflop"],
+            "achieved_tflop_per_s": bound["tflop"] / (ms / 1e3),
+            "bound_share": bound["bound_ms"] / ms,
+            "code_extra_ms_at_peak": bound["code_extra_ms_at_peak"]}
+
+
+def _finite(t, shape, what):
+    import torch
+    check(tuple(t.shape) == tuple(shape) and t.dtype == torch.float32
+          and bool(torch.isfinite(t).all()),
+          f"{what}: {tuple(t.shape)} {t.dtype} finite="
+          f"{bool(torch.isfinite(t).all())}")
+
+
+def vision_path(ops, peaks):
+    """The vision and diffusion models at full width in their configs'
+    bf16, on the card: vit-l16 (init; forward at serve_b128 and at
+    cls_384 with the pos table resized 14 -> 24, and ``features_only``;
+    then ``launch.train --arch vit-l16 --full`` at batch
+    ``VIT_TRAIN_BATCH`` with remat), deit-b (forward at batch
+    ``DEIT_BATCH``), dit-b2 (the DDIM ``sample`` at gen_fast: 512 px ->
+    64 x 64 x 4 latents, 1024 tokens, 16 latents, 4 steps; then
+    ``launch.train --arch dit-b2 --full`` at 256 px) and efficientnet-b7
+    (eval forward at 600 px, batch ``EFF_BATCH``; then ``launch.train
+    --arch efficientnet-b7 --full``). Each line: images/s (ms per sampler
+    step for DiT), ms per training step, peak GB, and the bound from the
+    function's operations and bytes (``vision_bound``: every product on
+    the bf16 tensor cores, 3 passes a training step), with the code's
+    extra work (q.k^T in fp32, remat's recompute) beside it. None of the six kernels launches (the
+    JAX package's models attend with ``causal=False``, and its flash
+    route is causal only, ``models/layers.py:161``)."""
+    import torch
+    from repro_torch.common.config import DIT_SHAPES, VISION_SHAPES
+    from repro_torch.common.device import resolve_device
+    from repro_torch.common import prng
+    from repro_torch.models import dit as D
+    from repro_torch.models import efficientnet as E
+    from repro_torch.models import vit as V
+
+    dev = resolve_device("cuda")
+    ops.reset_launches()
+    out = {}
+
+    # vit-l16: the Focus GT-CNN
+    cfg = vision_config("vit-l16")
+    serve, cls384 = VISION_SHAPES["serve_b128"], VISION_SHAPES["cls_384"]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = V.init(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    wbytes = tree_bytes(params)
+    n_params = sum(x.numel() for x in _flat_tree(params))
+    # the config's count leaves out the CLS token's D values
+    check(n_params == cfg.n_params() + cfg.d_model,
+          f"vit-l16 has {n_params} parameters")
+    x = _images(serve.global_batch, serve.img_res, 0, dev)
+    nbytes = wbytes + x.numel() * 4 + serve.global_batch * cfg.n_classes * 4
+    v = {"params": n_params, "init_s": init_s,
+         "tokens": cfg.n_tokens(serve.img_res)}
+    v["serve_b128"] = forward_entry(
+        lambda: V.forward(params, x, cfg), peaks,
+        partial(vit_work, cfg, serve.global_batch, serve.img_res), nbytes,
+        serve.global_batch,
+        lambda o: _finite(o, (serve.global_batch, cfg.n_classes),
+                          "vit-l16 logits"), VISION_ITERS)
+    v["features_only"] = forward_entry(
+        lambda: V.forward(params, x, cfg, features_only=True), peaks,
+        partial(vit_work, cfg, serve.global_batch, serve.img_res), nbytes,
+        serve.global_batch,
+        lambda o: _finite(o, (serve.global_batch, cfg.d_model),
+                          "vit-l16 features"), VISION_ITERS)
+    del x
+    x = _images(cls384.global_batch, cls384.img_res, 1, dev)
+    v["cls_384"] = dict(forward_entry(
+        lambda: V.forward(params, x, cfg), peaks,
+        partial(vit_work, cfg, cls384.global_batch, cls384.img_res),
+        wbytes + x.numel() * 4, cls384.global_batch,
+        lambda o: _finite(o, (cls384.global_batch, cfg.n_classes),
+                          "vit-l16 logits at 384"), VISION_ITERS),
+        tokens=cfg.n_tokens(cls384.img_res),
+        pos_grid=[cfg.img_res // cfg.patch, cls384.img_res // cfg.patch])
+    v["forward_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    step_s = v["serve_b128"]["ms"] / 1e3
+    with torch.no_grad():
+        x = _images(serve.global_batch, serve.img_res, 0, dev)
+        v["serve_b128_profile"] = step_profile(
+            lambda: V.forward(params, x, cfg), step_s)
+    del params, x
+    torch.cuda.empty_cache()
+    v["train"] = train_entry(
+        ops, peaks, "vit-l16", VIT_TRAIN_BATCH, VISION_TRAIN_STEPS,
+        (V, "init"), partial(vit_work, cfg, VIT_TRAIN_BATCH, cfg.img_res))
+    out["vit-l16"] = v
+
+    # deit-b: the distillation token and its second head
+    cfg = vision_config("deit-b")
+    torch.cuda.reset_peak_memory_stats()
+    params = V.init(cfg, seed=0, device="cuda")
+    x = _images(DEIT_BATCH, cfg.img_res, 2, dev)
+    out["deit-b"] = {
+        "params": sum(t.numel() for t in _flat_tree(params)),
+        "tokens": cfg.n_tokens(),
+        "serve": forward_entry(
+            lambda: V.forward(params, x, cfg), peaks,
+            partial(vit_work, cfg, DEIT_BATCH, cfg.img_res),
+            tree_bytes(params) + x.numel() * 4, DEIT_BATCH,
+            lambda o: _finite(o, (DEIT_BATCH, cfg.n_classes),
+                              "deit-b logits"), VISION_ITERS),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, x
+    torch.cuda.empty_cache()
+
+    # dit-b2: the DDIM sampler at gen_fast, then training at 256 px
+    cfg = vision_config("dit-b2")
+    gen = DIT_SHAPES["gen_fast"]
+    torch.cuda.reset_peak_memory_stats()
+    params = D.init(cfg, seed=0, device="cuda")
+    labels = torch.arange(gen.global_batch, device=dev) % cfg.n_classes
+    key = prng.key(0)
+    res = gen.img_res // cfg.vae_factor
+    with torch.no_grad():
+        lat = D.sample(params, key, labels, cfg, gen.img_res, gen.steps)
+        _finite(lat, (gen.global_batch, res, res, cfg.latent_channels),
+                "dit-b2 sample")
+        sample_ms = time_ms(lambda: D.sample(params, key, labels, cfg,
+                                             gen.img_res, gen.steps),
+                            iters=VISION_ITERS // 2, warmup=1)
+    work = partial(dit_work, cfg, gen.global_batch, gen.img_res)
+    bound = vision_bound(work, tree_bytes(params) * gen.steps
+                         + 2 * lat.numel() * 4, peaks, gen.steps)
+    out["dit-b2"] = {
+        "params": sum(t.numel() for t in _flat_tree(params)),
+        "gen_fast": {"img_res": gen.img_res, "batch": gen.global_batch,
+                     "steps": gen.steps, "tokens": cfg.n_tokens(gen.img_res),
+                     "timesteps": D.ddim_timesteps(gen.steps),
+                     "sample_ms": sample_ms,
+                     "ms_per_step": sample_ms / gen.steps,
+                     "images_per_s": 1e3 * gen.global_batch / sample_ms,
+                     "bound_ms": bound["bound_ms"],
+                     "bound_ms_per_step": bound["bound_ms"] / gen.steps,
+                     "bound_by": bound["bound_by"],
+                     "bound_share": bound["bound_ms"] / sample_ms,
+                     "code_extra_ms_at_peak": bound["code_extra_ms_at_peak"],
+                     "pos_grid": [int(cfg.n_tokens() ** 0.5),
+                                  int(cfg.n_tokens(gen.img_res) ** 0.5)]},
+        "sample_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, lat
+    torch.cuda.empty_cache()
+    out["dit-b2"]["train"] = train_entry(
+        ops, peaks, "dit-b2", DIT_TRAIN_BATCH, VISION_TRAIN_STEPS,
+        (D, "init"), partial(dit_work, cfg, DIT_TRAIN_BATCH, cfg.img_res))
+
+    # efficientnet-b7 at its native 600 px: eval forward, then training
+    cfg = vision_config("efficientnet-b7")
+    torch.cuda.reset_peak_memory_stats()
+    params, state = E.init(cfg, seed=0, device="cuda")
+    x = _images(EFF_BATCH, cfg.img_res, 3, dev)
+    e = {"params": sum(t.numel() for t in _flat_tree(params)),
+         "blocks": len(E.block_specs(cfg)),
+         "gflop_per_image": E.flops_per_image(cfg) / 1e9}
+    e["eval"] = forward_entry(
+        lambda: E.forward(params, state, x, cfg)[0], peaks,
+        partial(effnet_work, cfg, EFF_BATCH, cfg.img_res),
+        tree_bytes(params) + x.numel() * 4, EFF_BATCH,
+        lambda o: _finite(o, (EFF_BATCH, cfg.n_classes),
+                          "efficientnet-b7 logits"), VISION_ITERS)
+    e["eval_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        e["eval_profile"] = step_profile(
+            lambda: E.forward(params, state, x, cfg), e["eval"]["ms"] / 1e3)
+    del params, state, x
+    torch.cuda.empty_cache()
+    e["train"] = train_entry(
+        ops, peaks, "efficientnet-b7", EFF_TRAIN_BATCH, EFF_TRAIN_STEPS,
+        (E, "init"), partial(effnet_work, cfg, EFF_TRAIN_BATCH, cfg.img_res))
+    out["efficientnet-b7"] = e
+    launches = dict(ops.LAUNCHES)
+    check(sum(launches.values()) == 0,
+          f"the vision path launched a kernel: {launches}")
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: card against CPU
 # ---------------------------------------------------------------------------
 
@@ -2733,6 +3140,158 @@ def train_card_vs_cpu_lm(cfg):
             "param_share_over_1e-6": over / n,
             "param_median_abs_diff": float(np.median(
                 torch.cat([x.flatten() for x in diffs]).numpy()))}
+
+
+def _grads_of(loss, leaves):
+    import torch
+    for t in leaves:
+        t.requires_grad_(True)
+    g = torch.autograd.grad(loss(), leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    return [x.cpu() for x in g]
+
+
+def _rel_tree(a, b):
+    """max |a - b| / max |b| over a pair of tensors."""
+    return float((a.cpu().float() - b.float()).abs().max()
+                 / b.float().abs().max())
+
+
+def vision_card_vs_cpu():
+    """Reduced vit-s16, deit-b, dit-b2 and efficientnet-b7 in fp32, drawn
+    on the card and on the CPU (the draws bitwise equal) and run on both:
+    logits (DiT: noise and sigma; EfficientNet: logits and the new
+    batch-norm state in training mode) within 1e-5 of the largest |out|;
+    the first step's gradients of each ``loss_fn`` within 1e-5 of each
+    leaf's largest |grad|; DiT's ``sample`` (4 steps) within 1e-5, its
+    adaLN-Zero leaves first set from a seeded draw on both devices.
+    EfficientNet runs at 64 px, where the head's batch norm sees 16
+    values a channel; its gradients flow back through seven batch norms
+    in training mode and cuDNN's convolution backward sums in another
+    order than the CPU's, so they are held to 5e-5 (1.67e-5 measured on
+    an H100); the ``project`` batch norms' biases, whose gradient is
+    zero in exact arithmetic, to 1e-5 of the model's largest |grad|.
+    DiT's t_embed/w1 gradient is the timestep embedding times the
+    upstream gradient; ``exp``, ``cos`` and ``sin`` part by ulps between
+    the devices and t ≤ 999 magnifies them (2.84e-5 measured): 5e-5."""
+    import numpy as np
+    import torch
+    from repro_torch.common import prng
+    from repro_torch.common.config import reduced
+    from repro_torch.common.device import resolve_device
+    from repro_torch.models import dit as D
+    from repro_torch.models import efficientnet as E
+    from repro_torch.models import vit as V
+    from repro_torch.train.checkpoint import flatten
+
+    def same_draw(a, b):
+        return all(torch.equal(x.cpu(), y) for x, y in
+                   zip(_flat_tree(a), _flat_tree(b)))
+
+    def imgs(B, res, seed):
+        return torch.from_numpy(np.random.default_rng(seed).normal(
+            size=(B, res, res, 3)).astype(np.float32))
+
+    def grads_rel(card, cpu, loss, skip=(), loose=()):
+        """(worst leaf's rel, its path, the ``skip`` leaves' largest
+        |grad| over the model's, the worst of the ``loose`` leaves)."""
+        gc = _grads_of(lambda: loss(card, dev), flatten(card)[0])
+        gp = _grads_of(lambda: loss(cpu, host), flatten(cpu)[0])
+        top = max(float(g.abs().max()) for g in gp)
+        worst, zero, lax_ = (-1.0, ""), 0.0, 0.0
+        for name, a, b in zip(_leaf_paths(cpu), gc, gp):
+            if any(name.endswith(s) for s in skip):
+                zero = max(zero, float(a.abs().max()) / top,
+                           float(b.abs().max()) / top)
+            elif name in loose:
+                lax_ = max(lax_, _rel_tree(a, b))
+            else:
+                worst = max(worst, (_rel_tree(a, b), name))
+        return worst[0], worst[1], zero, lax_
+
+    out = {}
+    dev, host = resolve_device("cuda"), torch.device("cpu")
+    for arch in ("vit-s16", "deit-b"):
+        cfg = reduced(vision_config(arch), dtype="float32")
+        card, cpu = V.init(cfg, 0, dev), V.init(cfg, 0, host)
+        check(same_draw(card, cpu), f"{arch}: the draw differs")
+        x, y = imgs(4, cfg.img_res, 1), torch.tensor([0, 3, 7, 15])
+        with torch.no_grad():
+            rel = max(_rel_tree(V.forward(card, x.to(dev), cfg), V.forward(
+                cpu, x, cfg)) for x in (x, imgs(2, 48, 2)))
+        g, leaf, _, _ = grads_rel(card, cpu, lambda p, d: V.loss_fn(
+            p, x.to(d), y.to(d), cfg)[0])
+        out[arch] = {"logits_rel": rel, "grad_rel": g, "grad_leaf": leaf}
+        check(rel <= 1e-5 and g <= 1e-5, f"{arch} card vs CPU: {out[arch]}")
+
+    cfg = reduced(vision_config("efficientnet-b7"), dtype="float32")
+    (card, cs), (cpu, ps) = (E.init(cfg, 0, d) for d in (dev, host))
+    check(same_draw(card, cpu) and same_draw(cs, ps),
+          "efficientnet-b7: the draw differs")
+    x, y = imgs(4, 64, 3), torch.tensor([1, 5, 9, 2])
+    res = {}
+    for train in (False, True):
+        with torch.no_grad():
+            (a, sa), (b, sb) = (E.forward(p, s, x.to(d), cfg, train=train)
+                                for p, s, d in ((card, cs, dev),
+                                                (cpu, ps, host)))
+        res["train" if train else "eval"] = _rel_tree(a, b)
+        res["state_" + ("train" if train else "eval")] = max(
+            float((u.cpu() - v).abs().max())
+            for u, v in zip(_flat_tree(sa), _flat_tree(sb)))
+    g, leaf, zero, _ = grads_rel(card, cpu, lambda p, d: E.loss_fn(
+        p, cs if d == dev else ps, x.to(d), y.to(d), cfg)[0],
+        skip=("project/bn/bias",))
+    out["efficientnet-b7"] = dict(res, grad_rel=g, grad_leaf=leaf,
+                                  zero_grad_rel=zero)
+    check(max(res["eval"], res["train"], zero) <= 1e-5 and g <= 5e-5
+          and max(res["state_eval"], res["state_train"]) <= 1e-5,
+          f"efficientnet-b7 card vs CPU: {out['efficientnet-b7']}")
+
+    cfg = reduced(vision_config("dit-b2"), dtype="float32")
+    card, cpu = D.init(cfg, 0, dev), D.init(cfg, 0, host)
+    check(same_draw(card, cpu), "dit-b2: the draw differs")
+    keys = prng.split(prng.key(5), 64)
+    i = 0
+    for a, b in zip(_flat_tree(card), _flat_tree(cpu)):
+        if not bool(b.any()):           # adaLN-Zero: a seeded draw
+            b.copy_(prng.normal(keys[i], b.shape) * 0.05)
+            a.copy_(b)
+            i += 1
+    lat = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(3, 4, 4, 4)).astype(np.float32))
+    t, yl = torch.tensor([0, 421, 999]), torch.tensor([0, 7, 16])
+    with torch.no_grad():
+        (na, sa), (nb, sb) = (D.forward(p, lat.to(d), t.to(d), yl.to(d), cfg)
+                              for p, d in ((card, dev), (cpu, host)))
+        sample = _rel_tree(
+            D.sample(card, prng.key(3), yl.to(dev), cfg, cfg.img_res, 4),
+            D.sample(cpu, prng.key(3), yl, cfg, cfg.img_res, 4))
+    g, leaf, _, t_w1 = grads_rel(card, cpu, lambda p, d: D.loss_fn(
+        p, lat.to(d), yl.to(d), prng.key(11), cfg)[0],
+        loose=("t_embed/w1",))
+    out["dit-b2"] = {"noise_rel": _rel_tree(na, nb),
+                     "sigma_rel": _rel_tree(sa, sb), "grad_rel": g,
+                     "grad_leaf": leaf, "t_embed_w1_grad_rel": t_w1,
+                     "sample_rel": sample, "perturbed_leaves": i}
+    check(max(out["dit-b2"][k] for k in ("noise_rel", "sigma_rel",
+                                         "grad_rel", "sample_rel")) <= 1e-5
+          and t_w1 <= 5e-5,
+          f"dit-b2 card vs CPU: {out['dit-b2']}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_paths(tree, prefix=""):
+    """The leaves' paths ("a/b/0/c") in ``flatten``'s order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, f"{prefix}{i}/")]
+    return [prefix[:-1]]
 
 
 def _flat_tree(tree):
@@ -3519,6 +4078,16 @@ def main():
         entry["launches_train_path"] = trained["launches"][entry["name"]]
     emit({"phase": "train_resume", "gpu": smi, **train_resume(),
           "elapsed_s": elapsed()})
+    t_vision = time.perf_counter()
+    vision = vision_path(ops, peaks)
+    for model in ("vit-l16", "deit-b", "dit-b2", "efficientnet-b7"):
+        emit({"phase": "vision_path", "model": model, "gpu": smi,
+              **vision[model], "elapsed_s": elapsed()})
+    emit({"phase": "vision_path", "gpu": smi,
+          "launches": vision["launches"],
+          "path_s": time.perf_counter() - t_vision, "elapsed_s": elapsed()})
+    for entry in (ca, pm, dq, tk, mg, fa):
+        entry["launches_vision_path"] = vision["launches"][entry["name"]]
 
     # -- phase 4: card against CPU --------------------------------------------
     emit({"phase": "card_vs_cpu", **card_vs_cpu(serve_args),
@@ -3530,7 +4099,7 @@ def main():
           "moe_training": train_card_vs_cpu_lm(
               reduced(lm_config(MOE_ARCHS[0][0]), dtype="float32",
                       remat=True)),
-          "elapsed_s": elapsed()})
+          "vision": vision_card_vs_cpu(), "elapsed_s": elapsed()})
     override = cnn.make_apply(cnn.build(mcfg, cnn.init_params(mcfg, 0), dev))
     override_cfg = IngestConfig(K=serve_args["K"], threshold=serve_args["T"])
     emit({"phase": "breakdown", "gpu": smi,

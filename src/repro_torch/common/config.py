@@ -1,11 +1,14 @@
-"""Configuration of the model families the port runs: the cheap ingest CNN
-and the decoder-only LM (``LMConfig``, with its shape cells). The vision
-and diffusion families of the JAX package come with their slice.
+"""Configuration of the model families the port runs: the cheap ingest CNN,
+the decoder-only LM (``LMConfig``), the vision transformers (``ViTConfig``:
+ViT and DeiT), the diffusion transformer (``DiTConfig``) and EfficientNet
+(``EffNetConfig``), each family with its shape cells, field for field the
+JAX package's ``repro.common.config``.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -117,6 +120,112 @@ class LMConfig:
 
 
 @dataclass(frozen=True)
+class ViTConfig:
+    """A ViT or DeiT image classifier, field for field the JAX package's.
+    ``scan_layers`` and ``serve_pure_dp`` only lay the model out over a TPU
+    mesh; one card ignores them."""
+
+    name: str
+    img_res: int
+    patch: int
+    n_layers: int
+    d_model: int
+    n_heads: int
+    d_ff: int
+    n_classes: int = 1000
+    distill_token: bool = False    # DeiT
+    in_channels: int = 3
+    dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "nothing"
+    scan_layers: bool = True
+    serve_pure_dp: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    def n_tokens(self, img_res: Optional[int] = None) -> int:
+        res = img_res or self.img_res
+        n = (res // self.patch) ** 2 + 1
+        return n + (1 if self.distill_token else 0)
+
+    def n_params(self) -> int:
+        d, f = self.d_model, self.d_ff
+        per_layer = 4 * d * d + 2 * d * f + 4 * d
+        patch_embed = self.in_channels * self.patch ** 2 * d + d
+        pos = self.n_tokens() * d
+        head = d * self.n_classes + self.n_classes
+        if self.distill_token:
+            head *= 2
+        return self.n_layers * per_layer + patch_embed + pos + head + 2 * d
+
+    n_active_params = n_params
+
+
+@dataclass(frozen=True)
+class DiTConfig:
+    """A latent diffusion transformer (adaLN-Zero), field for field the JAX
+    package's; its latents are ``img_res // vae_factor`` pixels a side."""
+
+    name: str
+    img_res: int
+    patch: int
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_classes: int = 1000
+    latent_channels: int = 4
+    vae_factor: int = 8
+    dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "nothing"
+    scan_layers: bool = True
+
+    @property
+    def d_ff(self) -> int:
+        return 4 * self.d_model
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    def n_tokens(self, img_res: Optional[int] = None) -> int:
+        res = (img_res or self.img_res) // self.vae_factor
+        return (res // self.patch) ** 2
+
+    def n_params(self) -> int:
+        d = self.d_model
+        per_layer = 4 * d * d + 2 * d * self.d_ff + 6 * d * d + 2 * d
+        io = self.latent_channels * self.patch ** 2 * d * 2
+        cond = 256 * d + d * d + self.n_classes * d
+        return self.n_layers * per_layer + io + cond
+
+    n_active_params = n_params
+
+
+@dataclass(frozen=True)
+class EffNetConfig:
+    """EfficientNet (MBConv + squeeze-excite, compound scaling), field for
+    field the JAX package's. ``remat`` is kept so configs copy verbatim:
+    neither package checkpoints EfficientNet's activations."""
+
+    name: str
+    img_res: int
+    width_mult: float
+    depth_mult: float
+    n_classes: int = 1000
+    dtype: str = "bfloat16"
+    remat: bool = True
+
+    def n_params(self) -> int:
+        from repro_torch.models import efficientnet
+        return efficientnet.count_params(self)
+
+    n_active_params = n_params
+
+
+@dataclass(frozen=True)
 class CheapCNNConfig:
     """Focus ingest CNN: a small convnet (compressed family member).
 
@@ -159,15 +268,54 @@ LM_SHAPES = {
 }
 
 
+DIT_SHAPES = {
+    "train_256": ShapeCell("train_256", "dit_train", img_res=256,
+                           global_batch=256, steps=1000),
+    "gen_1024": ShapeCell("gen_1024", "dit_gen", img_res=1024,
+                          global_batch=4, steps=50),
+    "gen_fast": ShapeCell("gen_fast", "dit_gen", img_res=512,
+                          global_batch=16, steps=4),
+    "train_1024": ShapeCell("train_1024", "dit_train", img_res=1024,
+                            global_batch=32, steps=1000),
+}
+
+VISION_SHAPES = {
+    "cls_224": ShapeCell("cls_224", "cls", img_res=224, global_batch=256),
+    "cls_384": ShapeCell("cls_384", "cls", img_res=384, global_batch=64),
+    "serve_b1": ShapeCell("serve_b1", "serve", img_res=224, global_batch=1),
+    "serve_b128": ShapeCell("serve_b128", "serve", img_res=224,
+                            global_batch=128),
+}
+
+
+def shapes_for(cfg) -> dict:
+    if isinstance(cfg, LMConfig):
+        return LM_SHAPES
+    if isinstance(cfg, DiTConfig):
+        return DIT_SHAPES
+    if isinstance(cfg, (ViTConfig, EffNetConfig)):
+        return VISION_SHAPES
+    raise TypeError(f"unknown config family: {type(cfg)}")
+
+
 def reduced(cfg, **overrides):
-    """A tiny same-family config for CPU smoke tests (the JAX package's
-    ``reduced``). Only the LM family is ported so far; the others raise."""
-    if not isinstance(cfg, LMConfig):
-        raise TypeError(f"reduced() of {type(cfg).__name__} comes with its "
-                        f"family's slice of the port")
-    base = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
-                vocab_size=256, moe_group_size=32, remat=False)
-    if cfg.moe:
-        base.update(n_experts=4, moe_top_k=2)
+    """A tiny same-family config for CPU smoke tests: the JAX package's
+    ``reduced``, family for family."""
+    if isinstance(cfg, LMConfig):
+        base = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                    d_ff=128, vocab_size=256, moe_group_size=32, remat=False)
+        if cfg.moe:
+            base.update(n_experts=4, moe_top_k=2)
+    elif isinstance(cfg, ViTConfig):
+        base = dict(img_res=32, patch=8, n_layers=2, d_model=64, n_heads=4,
+                    d_ff=128, n_classes=16, remat=False)
+    elif isinstance(cfg, DiTConfig):
+        base = dict(img_res=32, patch=2, n_layers=2, d_model=64, n_heads=4,
+                    n_classes=16, remat=False)
+    elif isinstance(cfg, EffNetConfig):
+        base = dict(img_res=32, width_mult=0.25, depth_mult=0.25,
+                    n_classes=16, remat=False)
+    else:
+        raise TypeError(type(cfg))
     base.update(overrides)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **base)

@@ -17,7 +17,11 @@ threefry2x32``):
   a 64-bit counter, and the two output words XORed;
 * ``normal(key, shape)`` is ``_normal_real``: the bits' top 23 bits as the
   mantissa of a float in [1, 2), minus 1, scaled onto
-  [nextafter(-1, 0), 1), then ``sqrt(2) * erf_inv``.
+  [nextafter(-1, 0), 1), then ``sqrt(2) * erf_inv``;
+* ``randint(key, shape, minval, maxval)`` is ``_randint`` for int32: the
+  key split in two, 32 bits drawn under each, and the pair reduced modulo
+  the span through the multiplier ``2**32 mod span``, in uint32
+  arithmetic that wraps.
 
 The 32-bit words live in int64 tensors and are masked after every add and
 shift (torch has few uint32 operations). The bits are exact. ``erf_inv``
@@ -206,3 +210,32 @@ def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
         stop = min(start + _CHUNK, n)
         out[start:stop] = _normal_flat(_bits(key, start, stop))
     return out.reshape(shape)
+
+
+def _int32(x: torch.Tensor) -> torch.Tensor:
+    """uint32 words (in int64) as int32 values, two's complement."""
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32) on
+    ``key``'s device, bit for bit: JAX 0.9's ``_randint``. The span is
+    ``maxval - minval`` as uint32 (1 when ``maxval <= minval``);
+    ``(hi % span) * (2**32 % span) + lo % span``, each step wrapping to 32
+    bits, modulo the span, is added to ``minval``. Bounds outside int32
+    raise, as JAX's do."""
+    shape = tuple(int(s) for s in shape)
+    minval, maxval = int(minval), int(maxval)
+    if not all(-2 ** 31 <= v < 2 ** 31 for v in (minval, maxval)):
+        raise ValueError(f"randint bounds must fit in int32, got "
+                         f"[{minval}, {maxval})")
+    n = math.prod(shape)
+    k1, k2 = split(key)
+    higher, lower = _bits(k1, 0, n), _bits(k2, 0, n)
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _MASK) % span
+    offset = ((higher % span) * mult) & _MASK
+    offset = ((offset + lower % span) & _MASK) % span
+    return _int32((offset + (minval & _MASK)) & _MASK).reshape(shape)

@@ -1,15 +1,23 @@
-"""Registry mapping --arch ids to their config modules: the ids whose
-families the port runs (the decoder LMs, dense and MoE). The JAX
-package's vision and diffusion ids come with their slice (ROADMAP A13)."""
+"""Registry mapping --arch ids to their config modules: every id of the
+JAX package's registry, in its order (the decoder LMs, dense and MoE, the
+diffusion transformers and the vision models)."""
 from __future__ import annotations
 
 import importlib
+
+from repro_torch.common.config import shapes_for
 
 ARCH_IDS = [
     "dbrx-132b",
     "moonshot-v1-16b-a3b",
     "olmo-1b",
     "granite-34b",
+    "dit-b2",
+    "dit-s2",
+    "vit-l16",
+    "deit-b",
+    "efficientnet-b7",
+    "vit-s16",
 ]
 
 _MODULES = {a: "repro_torch.configs." + a.replace("-", "_") for a in ARCH_IDS}
@@ -21,3 +29,6 @@ def get_arch(arch_id: str):
     mod = importlib.import_module(_MODULES[arch_id])
     return mod.ARCH
 
+
+def get_shapes(arch_id: str):
+    return shapes_for(get_arch(arch_id))

@@ -1,15 +1,17 @@
-"""The neural-net layers the decoder LM runs: norms, rotary embeddings,
+"""The neural-net layers of the port's models: norms, rotary embeddings,
 GQA attention (prefill with causal/window masks, and one-token decode
-against a KV cache), the dense MLP and the mixture-of-experts FFN.
+against a KV cache), the dense MLP, the mixture-of-experts FFN, and the
+vision primitives (patch embedding, convolution with JAX's ``"SAME"``
+padding, batch norm with its running state, squeeze-excite).
 
-A port of the parts of ``repro.models.layers`` that ``models.transformer``
-reaches, with the JAX package's layouts at every public function:
-parameters are dictionaries of tensors shaped as the JAX tree (dense
-weights (d_in, d_out), applied as ``x @ w``), activations (B, S, D), heads
-(B, S, H, dh). ``*_init`` draws through ``common.prng`` exactly as the JAX
-package draws through ``jax.random``. Left out: the mesh constraints (one
-card), the remat policies that save matrix products (``remat_policy``
-raises on them) and the vision primitives.
+A port of ``repro.models.layers``, with the JAX package's layouts at every
+public function: parameters are dictionaries of tensors shaped as the JAX
+tree (dense weights (d_in, d_out), applied as ``x @ w``; conv weights
+HWIO), activations (B, S, D), heads (B, S, H, dh), images NHWC, a batch
+norm's state ``{"mean", "var"}``. ``*_init`` draws through ``common.prng``
+exactly as the JAX package draws through ``jax.random``. Left out: the
+mesh constraints (one card) and the remat policies that save matrix
+products (``remat_policy`` raises on them).
 
 Matrix products stay ``torch.matmul``/``einsum``, as the JAX package
 leaves them to XLA; the kernels of this module's path are
@@ -25,8 +27,10 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import prng
 from repro_torch.hopper import ops
@@ -49,6 +53,27 @@ def remat_policy(name: str):
             f"remat_policy {name!r} is not ported yet (ROADMAP A14); "
             f"use 'nothing'")
     raise ValueError(name)
+
+
+def run_layers(cfg, layer, params: dict, x: torch.Tensor, *args):
+    """``layer(cfg, p, x, *args)`` over the stacked layers
+    ``params["layers"]`` in order: the JAX package's ``scan`` over the
+    stacked axis. With gradients wanted and ``cfg.remat``, each layer runs
+    under an activation checkpoint (``cfg.remat_policy``) that saves its
+    input and recomputes the rest in the backward pass; serving runs
+    without one."""
+    remat = (cfg.remat and torch.is_grad_enabled()
+             and any(t.requires_grad for t in tree_leaves(params)))
+    if remat:
+        remat_policy(cfg.remat_policy)
+    for p in unstack(params["layers"], cfg.n_layers):
+        if remat:
+            # the layers draw no random numbers: no RNG state to replay
+            x = checkpoint(layer, cfg, p, x, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = layer(cfg, p, x, *args)
+    return x
 
 
 def compute_dtype(name: str) -> torch.dtype:
@@ -419,3 +444,227 @@ def moe(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
         picked = exp_out[idx, g_ix, within.clamp(max=C - 1)]
         y = (picked * gate_vals[..., None].to(x.dtype)).sum(2)
     return y.reshape(B, S, D), aux
+
+
+# ---------------------------------------------------------------------------
+# Vision primitives (images NHWC, conv weights HWIO, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` element by element, correctly rounded in x's dtype: a
+    tensor divisor, so no backend turns it into a product with ``1/d``
+    (XLA divides these draws)."""
+    return x / torch.full_like(x, d)
+
+
+def patch_embed_init(key: torch.Tensor, patch: int, in_ch: int,
+                     d_model: int, dtype: torch.dtype) -> dict:
+    k1, _ = prng.split(key)
+    fan_in = patch * patch * in_ch
+    w = _div(prng.normal(k1, (patch, patch, in_ch, d_model)),
+             math.sqrt(fan_in)).to(dtype)
+    return {"w": w, "b": torch.zeros(d_model, dtype=dtype,
+                                     device=key.device)}
+
+
+def patch_embed(params: dict, images: torch.Tensor,
+                patch: int) -> torch.Tensor:
+    """images: (B, H, W, C) -> (B, H/p * W/p, D): the VALID convolution of
+    stride ``patch``, plus the bias."""
+    out = conv(params, images, stride=patch, padding="VALID") + params["b"]
+    B, Hp, Wp, D = out.shape
+    return out.reshape(B, Hp * Wp, D)
+
+
+def conv_init(key: torch.Tensor, kh: int, kw: int, cin: int, cout: int,
+              dtype: torch.dtype, groups: int = 1) -> dict:
+    fan_in = kh * kw * cin // groups
+    w = _div(prng.normal(key, (kh, kw, cin // groups, cout)),
+             math.sqrt(max(fan_in, 1)))
+    return {"w": w.to(dtype)}
+
+
+def same_pads(size: int, k: int, stride: int):
+    """JAX's ``"SAME"`` padding of one axis: the output is
+    ``ceil(size / stride)`` long, and the padding it needs goes
+    ``total // 2`` before and the rest after (so a stride of 2 pads one
+    more after than before, where ``F.conv2d(padding=...)`` pads both
+    sides alike)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv(params: dict, x: torch.Tensor, stride: int = 1, groups: int = 1,
+         padding: str = "SAME") -> torch.Tensor:
+    """The JAX package's ``conv``: x (B, H, W, Cin) NHWC, ``params["w"]``
+    (kh, kw, Cin/groups, Cout) HWIO, ``padding`` ``"SAME"`` or ``"VALID"``
+    -> (B, H', W', Cout). Runs as ``F.conv2d`` on the channels-last view
+    of x (no copy of x), the weights permuted to OIHW; asymmetric SAME
+    padding is added to the NHWC tensor first."""
+    w = params["w"]
+    kh, kw = w.shape[0], w.shape[1]
+    if padding == "SAME":
+        (t, b), (lf, r) = (same_pads(x.shape[1], kh, stride),
+                           same_pads(x.shape[2], kw, stride))
+    elif padding == "VALID":
+        t = b = lf = r = 0
+    else:
+        raise ValueError(f"padding {padding!r}: 'SAME' or 'VALID'")
+    sym = (t, lf) if (t == b and lf == r) else (0, 0)
+    if sym == (0, 0) and (t, b, lf, r) != (0, 0, 0, 0):
+        x = F.pad(x, (0, 0, lf, r, t, b))
+    out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                   stride=stride, padding=sym, groups=groups)
+    return out.permute(0, 2, 3, 1)
+
+
+def resize_grid(grid: torch.Tensor, g_new: int) -> torch.Tensor:
+    """A (1, g, g, D) table resized to (1, g_new, g_new, D) in fp32, as
+    ``jax.image.resize(..., "bilinear")``: half-pixel centres, and a
+    triangle kernel widened by the scale when it shrinks (``antialias``),
+    which ``F.interpolate(mode="bilinear")`` does only with
+    ``antialias=True``."""
+    out = F.interpolate(grid.float().permute(0, 3, 1, 2),
+                        size=(g_new, g_new), mode="bilinear",
+                        align_corners=False, antialias=True)
+    return out.permute(0, 2, 3, 1)
+
+
+def classification_loss(logits: torch.Tensor, labels: torch.Tensor):
+    """Mean cross-entropy of fp32 logits and the accuracy: ``(loss,
+    {"nll", "acc"})``, the metrics detached."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels[:, None].long())[:, 0].mean()
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return nll, {"nll": nll.detach(), "acc": acc.detach()}
+
+
+def bn_init(c: int, device=None):
+    """(params ``{"scale", "bias"}``, state ``{"mean", "var"}``), fp32."""
+    ones = torch.ones(c, device=device)
+    zeros = torch.zeros(c, device=device)
+    return ({"scale": ones, "bias": zeros},
+            {"mean": zeros.clone(), "var": ones.clone()})
+
+
+def batchnorm(params: dict, state: dict, x: torch.Tensor, train: bool,
+              momentum: float = 0.99, eps: float = 1e-3):
+    """The JAX package's batch norm over (B, H, W) of x (B, H, W, C):
+    ``(y, new_state)``. Not ``nn.BatchNorm2d``: in training the state
+    keeps ``momentum * old + (1 - momentum) * batch`` with the batch's
+    biased variance, and ``eps`` is 1e-3. In eval the state normalises
+    and is returned as it is. The statistics and the normalisation run
+    in fp32; y is cast back to x's dtype."""
+    xf = x.float()
+    if train:
+        var, mean = torch.var_mean(xf, dim=(0, 1, 2), unbiased=False)
+        new_state = {
+            "mean": momentum * state["mean"] + (1 - momentum) * mean,
+            "var": momentum * state["var"] + (1 - momentum) * var,
+        }
+    else:
+        mean, var = state["mean"], state["var"]
+        new_state = state
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * params["scale"] + params["bias"]
+    return y.to(x.dtype), new_state
+
+
+def se_init(key: torch.Tensor, c: int, c_se: int,
+            dtype: torch.dtype) -> dict:
+    k1, k2 = prng.split(key)
+    return {"w1": dense_init(k1, c, c_se, dtype=dtype),
+            "b1": torch.zeros(c_se, dtype=dtype, device=key.device),
+            "w2": dense_init(k2, c_se, c, dtype=dtype),
+            "b2": torch.zeros(c, dtype=dtype, device=key.device)}
+
+
+def squeeze_excite(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (B, H, W, C) scaled per channel by
+    ``sigmoid(silu(mean_hw(x) @ w1 + b1) @ w2 + b2)``."""
+    s = x.mean((1, 2))
+    s = F.silu(s @ params["w1"] + params["b1"])
+    s = torch.sigmoid(s @ params["w2"] + params["b2"])
+    return x * s[:, None, None, :]
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees (dicts and lists of tensors, as the JAX package nests them)
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of a tree of dicts, lists and tuples,
+    as ``jax.tree.map`` does: e.g. ``tree_map(lambda t: t.cpu(),
+    params)``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts in the JAX package's order (dict keys
+    sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def write_layer(stacked: dict, layer: dict, i: int):
+    """Copies one layer's tree into row ``i`` of the stacked tree."""
+    for k, v in layer.items():
+        if isinstance(v, dict):
+            write_layer(stacked[k], v, i)
+        else:
+            stacked[k][i].copy_(v)
+
+
+def stacked_layers(keys: torch.Tensor, layer_init) -> dict:
+    """The JAX package's ``vmap(layer_init)(keys)``: one draw per layer key
+    (threefry draws per key alike under ``vmap``), each written into
+    leaves with a leading layer axis, allocated once, as it is made."""
+    stacked = None
+    n = keys.shape[0]
+    for i, k in enumerate(keys):
+        p = layer_init(k)
+        if stacked is None:
+            stacked = tree_map(lambda t: t.new_empty((n,) + t.shape), p)
+        write_layer(stacked, p, i)
+        del p                   # the next layer's draw runs without it
+    return stacked
+
+
+def unstack(tree: dict, n: int) -> list:
+    """The stacked layer tree as ``n`` per-layer trees of views. One
+    ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where indexing each layer would add a full-size zero gradient per
+    layer."""
+    if isinstance(tree, dict):
+        per_key = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def tree_from_jax(tree, dtype: torch.dtype, device: torch.device):
+    """A JAX-layout tree (numpy or JAX arrays, bf16 included) as tensors on
+    ``device``: norm and batch-norm leaves (``scale``, ``bias``, ``mean``,
+    ``var``) fp32, every other leaf in ``dtype``, as the JAX package's
+    ``init`` lays them out."""
+    def walk(key, t):
+        if isinstance(t, dict):
+            return {k: walk(k, v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(key, v) for v in t]
+        dt = (torch.float32 if key in ("scale", "bias", "mean", "var")
+              else dtype)
+        return torch.from_numpy(np.array(t, np.float32)).to(device, dt)
+
+    return walk(None, tree)
+
+
+def tree_to_jax(tree):
+    """A tree of tensors as float32 numpy arrays (numpy has no bfloat16; a
+    bf16 value is exact in float32)."""
+    return tree_map(lambda t: t.detach().float().cpu().numpy(), tree)

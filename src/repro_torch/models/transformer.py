@@ -33,7 +33,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import prng
 from repro_torch.common.config import LMConfig
@@ -44,9 +43,8 @@ from repro_torch.models import layers as L
 def init(cfg: LMConfig, seed: int = 0, device: DeviceLike = "cuda") -> dict:
     """Random parameters on ``device``: the JAX package's
     ``init(jax.random.PRNGKey(seed), cfg)``, key for key and leaf for leaf
-    (its ``vmap`` over the layer keys is one draw per layer key). Each
-    layer's draw is written into the stacked leaves as it is made, so
-    the card holds the weights once, plus one layer's draw."""
+    (``layers.stacked_layers``: the card holds the weights once, plus one
+    layer's draw)."""
     dev = resolve_device(device)
     dt = L.compute_dtype(cfg.dtype)
     ks = prng.split(prng.key(seed, dev), 4)
@@ -67,17 +65,10 @@ def init(cfg: LMConfig, seed: int = 0, device: DeviceLike = "cuda") -> dict:
             p["mlp"] = L.mlp_init(k2, cfg.d_model, cfg.d_ff, cfg.mlp_act, dt)
         return p
 
-    stacked = None
-    for i, k in enumerate(prng.split(ks[1], cfg.n_layers)):
-        p = layer_init(k)
-        if stacked is None:
-            stacked = tree_map(
-                lambda t: t.new_empty((cfg.n_layers,) + t.shape), p)
-        _write_layer(stacked, p, i)
-        del p                   # the next layer's draw runs without it
     params = {
         "tok_embed": emb,
-        "layers": stacked,
+        "layers": L.stacked_layers(prng.split(ks[1], cfg.n_layers),
+                                   layer_init),
         "final_ln": L.norm_init(cfg.norm, cfg.d_model, dev),
     }
     if not cfg.tie_embeddings:
@@ -86,39 +77,7 @@ def init(cfg: LMConfig, seed: int = 0, device: DeviceLike = "cuda") -> dict:
     return params
 
 
-def _write_layer(stacked: dict, layer: dict, i: int):
-    """Copies one layer's tree into row ``i`` of the stacked tree."""
-    for k, v in layer.items():
-        if isinstance(v, dict):
-            _write_layer(stacked[k], v, i)
-        else:
-            stacked[k][i].copy_(v)
-
-
-def _unstack(tree: dict, n: int) -> list:
-    """The stacked layer tree as ``n`` per-layer trees of views. One
-    ``unbind`` per leaf: its backward stacks the layers' gradients once,
-    where indexing each layer would add a full-size zero gradient per
-    layer."""
-    if isinstance(tree, dict):
-        per_key = {k: _unstack(v, n) for k, v in tree.items()}
-        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
-    return list(tree.unbind(0))
-
-
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    return [tree]
-
-
-def tree_map(fn, tree: dict) -> dict:
-    """``fn`` applied to every tensor of a parameter (or cache) tree, as
-    ``jax.tree.map`` does: e.g. ``tree_map(lambda t: t.float(), params)``
-    or ``tree_map(lambda t: t.cpu(), params)``."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+tree_map = L.tree_map
 
 
 def params_from_jax(tree: dict, cfg: LMConfig,
@@ -143,10 +102,7 @@ def params_from_jax(tree: dict, cfg: LMConfig,
     return walk((), tree)
 
 
-def params_to_jax(params: dict) -> dict:
-    """The port's parameters as a JAX-layout tree of float32 numpy arrays
-    (numpy has no bfloat16; a bf16 value is exact in float32)."""
-    return tree_map(lambda t: t.detach().float().cpu().numpy(), params)
+params_to_jax = L.tree_to_jax
 
 
 def _ffn(cfg: LMConfig, p: dict, h: torch.Tensor):
@@ -195,20 +151,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
     S = tokens.shape[1]
     x = params["tok_embed"][tokens].to(dt)
     positions = torch.arange(S, device=tokens.device)[None, :]
-    remat = (cfg.remat and torch.is_grad_enabled()
-             and any(t.requires_grad for t in _leaves(params)))
-    if remat:
-        L.remat_policy(cfg.remat_policy)     # "nothing": save layer inputs
     auxs = []
-    for p in _unstack(params["layers"], cfg.n_layers):
-        if remat:
-            # the layers draw no random numbers: no RNG state to replay
-            x, aux = checkpoint(_layer, cfg, p, x, positions, attn_impl,
-                                use_reentrant=False,
-                                preserve_rng_state=False)
-        else:
-            x, aux = _layer(cfg, p, x, positions, attn_impl)
+
+    def layer(cfg, p, x):
+        # a remat recompute appends again, after the sum below is taken
+        x, aux = _layer(cfg, p, x, positions, attn_impl)
         auxs.append(aux)
+        return x
+
+    x = L.run_layers(cfg, layer, params, x)
     x = L.apply_norm(cfg.norm, params["final_ln"], x)
     if last_logit_only:
         x = x[:, -1:, :]
@@ -267,7 +218,7 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor,
     is dropped."""
     dt = L.compute_dtype(cfg.dtype)
     x = params["tok_embed"][token].to(dt)
-    for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
+    for i, p in enumerate(L.unstack(params["layers"], cfg.n_layers)):
         h = L.apply_norm(cfg.norm, p["ln1"], x)
         h, _, _ = L.decode_attention(
             p["attn"], h, cache["k"][i], cache["v"][i], cache_len,

@@ -3,13 +3,22 @@ gradient compression, checkpoint and restart, preemption handling. A
 port of ``repro.train.train_loop``, which both the specialized cheap
 CNNs (paper §4.3) and the decoder LM run.
 
-``loss_fn(params, batch) -> (loss, metrics)`` is the model contract
-(the reference's ``loss_fn(params, batch, rng)``: no model of the port
-draws random numbers in its loss, so there is no rng; ``TrainConfig.seed``
-is kept so configs copy verbatim). ``params`` is an ``nn.Module`` (the
-cheap CNN) or a tree of tensors (the LM's parameter dictionary); the loop
-updates its tensors in place and returns it. ``batch`` is a dict of
-tensors with a leading batch axis, on the parameters' device.
+``loss_fn(params, batch, rng) -> (loss, metrics)`` is the model contract,
+the JAX package's: ``rng`` is a ``common.prng`` key (on the CPU), drawn
+as the JAX package's loop draws it: ``key(TrainConfig.seed)``, split each
+step into the next key and the step's, and the step's split once more
+into one key per micro-batch (when there is more than one). DiT's loss
+draws its timesteps and noise from it; the other models' losses take it
+and draw nothing. A loss of two arguments (``loss_fn(params, batch)``) is
+still called without one (``takes_rng``): a compatibility path for the
+older tests' losses, to go when they are next touched. After a restore
+the key restarts at
+``key(seed)``, as the JAX package's does: a resumed run draws other
+numbers than an uninterrupted one, in both packages. ``params`` is an
+``nn.Module`` (the cheap CNN) or a tree of tensors (a model's parameter
+dictionary); the loop updates its tensors in place and returns it.
+``batch`` is a dict of tensors with a leading batch axis, on the
+parameters' device.
 
 The step runs in the JAX package's order: the batch split contiguously
 into ``n_microbatches`` parts, each part's gradients added to an fp32
@@ -22,6 +31,7 @@ so a checkpoint's leaves are the JAX package's for the same tree.
 from __future__ import annotations
 
 import contextlib
+import inspect
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -29,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.common import prng
 from repro_torch.train import compression as comp
 from repro_torch.train import optimizer as opt
 from repro_torch.train.checkpoint import CheckpointManager, flatten
@@ -88,32 +99,54 @@ def _microbatch(batch: Dict[str, Any], i: int, n: int) -> Dict[str, Any]:
     return part(batch)
 
 
+def takes_rng(loss_fn: Callable) -> bool:
+    """Whether ``loss_fn`` takes the contract's third argument, the rng.
+    A compatibility path: every loss of the port's entry points takes it;
+    only the two-argument losses of older tests do not."""
+    ps = inspect.signature(loss_fn).parameters.values()
+    if any(p.kind == p.VAR_POSITIONAL for p in ps):
+        return True
+    return sum(p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
+               for p in ps) >= 3
+
+
 def make_train_step(loss_fn: Callable, opt_cfg: opt.OptConfig,
                     train_cfg: TrainConfig) -> Callable:
-    """``step(params, opt_state, ef_state, batch) -> (params, opt_state,
-    ef_state, metrics)``. ``opt_state`` is ``optimizer.init`` of
-    ``param_leaves(params)``; ``ef_state`` is
+    """``step(params, opt_state, ef_state, batch, rng=None) -> (params,
+    opt_state, ef_state, metrics)``. ``opt_state`` is ``optimizer.init``
+    of ``param_leaves(params)``; ``ef_state`` is
     ``compression.init_ef_state`` of them under ``int8_ef``, else 0. The
-    parameters and ``opt_state`` are updated in place. ``metrics`` holds
+    parameters and ``opt_state`` are updated in place. ``rng`` (a
+    ``common.prng`` key) goes to a loss that takes one, split once per
+    micro-batch when there is more than one. ``metrics`` holds
     ``loss_fn``'s metrics, ``loss``, ``lr`` and ``grad_norm``, as tensors
     on the device (``lr`` a float)."""
     n_mb = train_cfg.n_microbatches
+    with_rng = takes_rng(loss_fn)
 
-    def grads_of(params, leaves, batch):
-        loss, metrics = loss_fn(params, batch)
+    def grads_of(params, leaves, batch, rng):
+        if with_rng:
+            if rng is None:
+                raise ValueError("this loss_fn takes an rng: pass one")
+            loss, metrics = loss_fn(params, batch, rng)
+        else:
+            loss, metrics = loss_fn(params, batch)
         return loss.detach(), metrics, torch.autograd.grad(loss, leaves)
 
-    def step(params, opt_state, ef_state, batch):
+    def step(params, opt_state, ef_state, batch, rng=None):
         leaves = param_leaves(params)
         with _requiring_grad(leaves):
             if n_mb > 1:
+                rngs = (prng.split(rng, n_mb) if rng is not None
+                        else [None] * n_mb)
                 grads = [torch.zeros_like(p, dtype=torch.float32)
                          for p in leaves]
                 loss = torch.zeros((), dtype=torch.float32,
                                    device=leaves[0].device)
                 for i in range(n_mb):
                     l, metrics, g = grads_of(params, leaves,
-                                             _microbatch(batch, i, n_mb))
+                                             _microbatch(batch, i, n_mb),
+                                             rngs[i])
                     for a, b in zip(grads, g):
                         a.add_(b)
                     loss = loss + l.float()
@@ -122,7 +155,7 @@ def make_train_step(loss_fn: Callable, opt_cfg: opt.OptConfig,
                     g.div_(n_mb)
                 loss = loss / n_mb
             else:
-                loss, metrics, grads = grads_of(params, leaves, batch)
+                loss, metrics, grads = grads_of(params, leaves, batch, rng)
 
         if train_cfg.compression == "bf16":
             grads = comp.cast_bf16(grads)
@@ -151,7 +184,8 @@ def train(loss_fn: Callable, params, data_iter: Iterator[Dict[str, Any]],
     Fault tolerance: with ``ckpt`` and ``resume``, the newest checkpoint's
     parameters (copied into ``params``), optimizer and error-feedback
     state are restored and its ``batches_consumed`` batches of
-    ``data_iter`` replayed. A SIGTERM checkpoints at the next step's end
+    ``data_iter`` replayed; the rng is not restored (it restarts at
+    ``key(seed)``, as in the JAX package). A SIGTERM checkpoints at the next step's end
     (``preempted`` in its extras) and returns; ``ckpt_every`` saves
     periodically, and the last step is saved when ``train`` returns (the
     JAX package's loop saves it again when ``ckpt_every`` just did, and
@@ -176,6 +210,7 @@ def train(loss_fn: Callable, params, data_iter: Iterator[Dict[str, Any]],
         opt_state = opt.init(leaves)
         ef_state = comp.init_ef_state(leaves) if int8_ef else 0
 
+    rng = prng.key(train_cfg.seed)
     preempt = PreemptionHandler()
     timer = StepTimer()
     history: List[dict] = []
@@ -183,9 +218,10 @@ def train(loss_fn: Callable, params, data_iter: Iterator[Dict[str, Any]],
     try:
         for step in range(start_step, train_cfg.steps):
             batch = next(data_iter)
+            rng, sub = prng.split(rng)
             with timer.measure():
                 params, opt_state, ef_state, metrics = step_fn(
-                    params, opt_state, ef_state, batch)
+                    params, opt_state, ef_state, batch, sub)
             if (step + 1) % train_cfg.log_every == 0 or step == start_step:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["step"] = step + 1

@@ -71,7 +71,8 @@ def test_full_olmo_1b_parameter_count():
             cfg.head_dim, cfg.d_ff, cfg.vocab_size) == \
         (16, 2048, 16, 16, 128, 8192, 50304)
     assert ARCH_IDS == ["dbrx-132b", "moonshot-v1-16b-a3b", "olmo-1b",
-                        "granite-34b"]
+                        "granite-34b", "dit-b2", "dit-s2", "vit-l16",
+                        "deit-b", "efficientnet-b7", "vit-s16"]
 
 
 def test_moe_counts_and_reduced_raise_outside_the_lm_family():
@@ -94,7 +95,7 @@ def test_moe_counts_and_reduced_raise_outside_the_lm_family():
         assert cfg.moe and (cfg.n_params(), cfg.n_active_params()) == \
             (n, active)
     with pytest.raises(KeyError):
-        get_arch("vit-l16")
+        get_arch("vit-h14")
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "granite-34b"])
