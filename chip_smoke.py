@@ -96,9 +96,9 @@ Phases, each fatal on failure (no phase's failure is caught):
    tokens); then, on the same weights in fp32, the two routes' prefill
    logits and ``decode_step`` against ``forward`` within 1e-4 of the
    largest |logit|. Then the MoE LMs (``moe_path``, through the same
-   ``lm_path``): moonshot-v1-16b-a3b at full width and depth (48 layers,
-   64 experts top-6, 56.1 GB in bf16; init time and peak memory) and
-   dbrx-132b at full width with 2 layers, each prefilled on both routes
+   ``lm_path``): moonshot-v1-16b-a3b at full width with 16 of its 48
+   layers (64 experts top-6; init time and peak memory) and dbrx-132b
+   at full width with 2 layers, each prefilled on both routes
    in both dispatch modes (``einsum``, ``scatter``) against one bound
    per model, the function's work on the choices it keeps (capacity
    padding and GShard's dispatch products reported beside it as the
@@ -123,20 +123,48 @@ Phases, each fatal on failure (no phase's failure is caught):
    the same 3 steps twice bitwise, 6 steps uninterrupted against 3 with
    a checkpoint and a resumed run to 6, bitwise, a bf16 leaf restored
    bitwise, a fake preemption at step 2 checkpointing and returning,
-   checkpoint write and restore times. Last, the vision and diffusion
-   models at full width in bf16 (``vision_path``, one line per model):
-   vit-l16 (init, forward at serve_b128 and at cls_384 with its pos table
-   resized 14 -> 24, ``features_only``, then ``launch.train --arch
-   vit-l16 --full`` at batch 32 with remat), deit-b (forward at batch
-   128), dit-b2 (the DDIM sampler at gen_fast: 16 latents of 64 x 64 x
-   4, 1024 tokens, 4 steps; then ``launch.train --arch dit-b2 --full`` at
-   256 px) and efficientnet-b7 (eval forward at 600 px, batch 8, then
-   ``launch.train --arch efficientnet-b7 --full``): images/s or ms per
-   sampler step, ms per training step, peak GB, the bound from the
-   function's operations and bytes (every product on the bf16 tensor
-   cores, 3 passes a training step) with the code's extra work beside it
-   as ms at peak (the fp32 q.k^T, remat's recompute); none of the six
-   kernels launches;
+   checkpoint write and restore times. Then the step builders
+   (``steps_path``, one line per cell): cells of
+   ``repro_torch.launch.steps`` built at full width in bf16 (each global
+   batch, cache or depth cut printed) and run on ``init(cfg, seed=0)``
+   weights and seeded data: olmo-1b's train_4k at batch 2 under the remat
+   policies ``nothing``, ``dots_nobatch`` and ``dots`` (ms/step, the
+   median of steps 2-4, peak GB, idle share of one profiled step; losses
+   and parameters bitwise equal across the policies), prefill_32k at
+   batch 2 (the serve step picks the flash route itself: 16
+   ``flash_attention`` launches a call), decode_32k at batch 4 on a
+   filled 32768-slot cache, long_500k (its ``skip_reason``, then the
+   window variant's decode on 65536 slots); granite-34b with 4 of 88
+   layers: prefill_32k at batch 2 through the long-prefill recipe (2
+   halves, 8 launches a call) and decode_32k at batch 8; moonshot with
+   2 of 48 layers: train_4k at batch 4 in its 4 micro-batches (``topk``
+   16 times a step under remat); each against its bound
+   (``train_step_work`` without remat's recompute, for MoE on the kept
+   choices; ``prefill_work``; the decode's bytes, a window's slots only).
+   After the path's launch counters are read (``long_prefill_checks``):
+   ``flash_attention`` at the two S = 32768 shapes the built prefill
+   steps launch it at (2 x 32768 x 16 x 128 and 1 x 32768 x 48 x 128,
+   bf16) against the plain version block by block over the queries, to
+   one bf16 ulp, timed beside that blocked plain version and SDPA, with
+   ``flash_entry``'s bound; and each prefill_32k step built at 2 layers
+   in fp32, its flash route against the einsum route with 1024-row query
+   blocks, within 1e-4 of the largest |logit|.
+   Last, the vision and diffusion models at full width in bf16
+   (``vision_path``, one line per model), served through their built
+   serve steps: vit-l16 (init, the serve step at serve_b128 and at
+   cls_384's shape as a serve cell with its pos table resized 14 -> 24,
+   ``features_only``, a built cls_224 train step at batch 8, then
+   ``launch.train --arch vit-l16 --full`` at batch 32 with remat), deit-b
+   (serve step at batch 128), dit-b2 (the gen_fast serve step, the DDIM
+   sampler: 16 latents of 64 x 64 x 4, 1024 tokens, 4 steps; a built
+   train_256 step at batch 8; then ``launch.train --arch dit-b2 --full``
+   at 256 px) and efficientnet-b7 (serve step at 600 px, batch 8; a
+   built cls_224 train step at batch 8; then ``launch.train --arch
+   efficientnet-b7 --full``): images/s or ms per sampler step, ms per
+   training step, peak GB, the bound from the function's operations and
+   bytes (every product on the bf16 tensor cores, 3 passes a training
+   step) with the code's extra work beside it as ms at peak (the fp32
+   q.k^T, remat's recompute); none of the six kernels launches;
 4. card against CPU: the 120 s of frames through
    ``BackgroundSubtractor(device="cpu")`` give the card's boxes on every
    frame and its final background bit for bit; on a 60 s cut, spec1-spec3
@@ -223,12 +251,15 @@ LM_ARCH = "olmo-1b"
 LM_BATCH, LM_SEQ = 4, 2048
 DECODE_PROMPT, DECODE_NEW, DECODE_SLOTS = 32, 32, 2048
 # The MoE path, the same prefills and decode: moonshot-v1-16b-a3b at full
-# width and depth (48 layers, 28.06 B parameters, 56.1 GB in bf16), and
-# dbrx-132b at full width with 2 of its 40 layers (131.6 B parameters in
-# full, 263 GB); the fp32 checks at full width with 2 layers (the full
-# moonshot would take 112 GB in fp32)
-MOE_DBRX_LAYERS = 2
-MOE_ARCHS = (("moonshot-v1-16b-a3b", None), ("dbrx-132b", MOE_DBRX_LAYERS))
+# width with 16 of its 48 layers (28.06 B parameters and 56.1 GB in bf16
+# at full depth, which fits the card too; cut to a third to keep the
+# smoke inside its limit on a slow card), and dbrx-132b at full width
+# with 2 of its 40 layers (131.6 B parameters in full, 263 GB); the fp32
+# checks at full width with 2 layers (the full moonshot would take 112
+# GB in fp32)
+MOE_MOONSHOT_LAYERS, MOE_DBRX_LAYERS = 16, 2
+MOE_ARCHS = (("moonshot-v1-16b-a3b", MOE_MOONSHOT_LAYERS),
+             ("dbrx-132b", MOE_DBRX_LAYERS))
 MOE_CHECK_LAYERS = 2
 # phase 4's card-against-CPU LM: olmo-1b's width with 2 layers
 LM_CPU_LAYERS, LM_CPU_BATCH, LM_CPU_SEQ = 2, 2, 256
@@ -248,6 +279,23 @@ TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS = 1, 64, 3
 VIT_TRAIN_BATCH, DEIT_BATCH, DIT_TRAIN_BATCH = 32, 128, 32
 EFF_BATCH, EFF_TRAIN_BATCH, EFF_TRAIN_STEPS = 8, 8, 4
 VISION_TRAIN_STEPS, VISION_ITERS = 6, 10
+# The step builders (``steps_path``): cells of ``repro_torch.launch.steps``
+# at full width in bf16, each global batch cut to one card: olmo-1b's
+# train_4k at batch 2 under each remat policy, prefill_32k at batch 2,
+# decode_32k at batch 4 and long_500k's window variant with its cache cut
+# to 65536 slots; granite-34b with 4 of its 88 layers (prefill_32k at
+# batch 2, decode_32k at batch 8); moonshot-v1-16b-a3b with 2 of its 48
+# layers (train_4k at batch 4 in its 4 micro-batches); and in
+# ``vision_path`` a built train step per vision family at a small batch
+STEPS_TRAIN_BATCH, STEPS_TRAIN_STEPS = 2, 4
+STEPS_PREFILL_BATCH, STEPS_PREFILL_CALLS = 2, 2
+STEPS_DECODE_BATCH = {"olmo-1b": 4, "granite-34b": 8}
+STEPS_DECODE_STEPS, STEPS_WINDOW_SLOTS = 8, 65536
+STEPS_GRANITE_LAYERS, STEPS_MOE_LAYERS = 4, 2
+# the prefill_32k cells checked in fp32 at this depth (``long_prefill_checks``)
+STEPS_CHECK_LAYERS = 2
+STEPS_MOE_BATCH, STEPS_MOE_STEPS = 4, 3
+STEPS_VISION_BATCH, STEPS_VISION_STEPS = 8, 3
 
 
 def emit(obj):
@@ -1265,43 +1313,47 @@ def check_flash_attention(ops, ref, dev, cfg):
         path
 
 
-def flash_entry(ops, ref, q, k, v, peaks):
-    """``flash_attention`` timed at the LM path's shape (causal bf16).
-    Bound by operations: the causal half of the two products, S(S+1)/2
-    score pairs per head at 2*dh operations each per product. q.k^T has
-    bf16 operands; p.v has fp32 p (the JAX kernel keeps it fp32), which is
-    p_hi + p_lo, two bf16 terms, against bf16 v: so all of it runs on the
-    bf16 tensor cores, q.k^T once and p.v twice (``tensor_gflop``). Bytes:
-    q, k, v read once, the output written once. Beside it, the bound with
-    p.v at fp32's peak (``bound_p_fp32_ms``, the bound before the split);
-    ``tensor_tflops`` is the tensor work over the kernel's time. SDPA on
-    the (B, H, S, dh) view is the library yardstick, never called by the
-    port."""
-    import torch
-    import torch.nn.functional as F
+def flash_bound(q, peaks):
+    """The least time of causal ``flash_attention`` on q, k, v shaped as
+    ``q`` (B, S, H, dh), by operations: the causal half of the two
+    products, S(S+1)/2 score pairs per head at 2*dh operations each per
+    product. q.k^T has bf16 operands; p.v has fp32 p (the JAX kernel
+    keeps it fp32), which is p_hi + p_lo, two bf16 terms, against bf16 v:
+    so all of it runs on the bf16 tensor cores, q.k^T once and p.v twice
+    (``tensor_gflop``). Bytes: q, k, v read once, the output written
+    once. Beside it, the bound with p.v at fp32's peak
+    (``bound_p_fp32_ms``, the bound before the split)."""
     B, S, H, dh = q.shape
-    check(q.dtype == torch.bfloat16, "flash_entry times the bf16 path")
     n_ops = 2 * B * H * dh * S * (S + 1)
     tensor_ops = n_ops / 2 + 2 * n_ops / 2
     n_bytes = 4 * q.numel() * q.element_size()
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     op_s = tensor_ops / peaks["bf16_tc"]
     by_s = n_bytes / peaks["bytes"]
+    return {"shape": [B, S, H, dh], "dtype": str(q.dtype), "causal": True,
+            "gflop": n_ops / 1e9, "tensor_gflop": tensor_ops / 1e9,
+            "mbytes": n_bytes / 1e6,
+            "bound_ms": 1e3 * max(op_s, by_s),
+            "bound_by": "operations" if op_s > by_s else "bytes",
+            "bound_p_fp32_ms": 1e3 * max(n_ops / 2 / peaks["bf16_tc"]
+                                         + n_ops / 2 / peaks["fp32"], by_s)}
+
+
+def flash_entry(ops, ref, q, k, v, peaks):
+    """``flash_attention`` timed at the LM path's shape (causal bf16), with
+    its bound (``flash_bound``); ``tensor_tflops`` is the tensor work over
+    the kernel's time. SDPA on the (B, H, S, dh) view is the library
+    yardstick, never called by the port."""
+    import torch
+    import torch.nn.functional as F
+    check(q.dtype == torch.bfloat16, "flash_entry times the bf16 path")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    bound = flash_bound(q, peaks)
     t = timings(lambda: ops.flash_attention(q, k, v, causal=True),
                 lambda: ref.flash_attention_ref(q, k, v, causal=True),
                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=True))
-    return {
-        "shape": [B, S, H, dh], "dtype": str(q.dtype), "causal": True,
-        "gflop": n_ops / 1e9, "tensor_gflop": tensor_ops / 1e9,
-        "mbytes": n_bytes / 1e6, **t,
-        "tensor_tflops": tensor_ops / t["ms"] / 1e9,
-        "bound_ms": 1e3 * max(op_s, by_s),
-        "bound_by": "operations" if op_s > by_s else "bytes",
-        "bound_p_fp32_ms": 1e3 * max(n_ops / 2 / peaks["bf16_tc"]
-                                     + n_ops / 2 / peaks["fp32"], by_s),
-    }
-
+    return {**bound, **t,
+            "tensor_tflops": bound["tensor_gflop"] / t["ms"]}
 
 
 def get_frames(stream, n=None, duration=120):
@@ -2311,8 +2363,9 @@ def lm_path(ops, peaks, cfg, check_layers=None):
 def moe_path(ops, peaks):
     """The MoE LMs served on the card through ``lm_path``, each prefilled
     in both dispatch modes with fp32 checks at ``MOE_CHECK_LAYERS``
-    layers: moonshot-v1-16b-a3b at full width and depth, and dbrx-132b
-    at full width with ``MOE_DBRX_LAYERS`` of its 40 layers."""
+    layers: moonshot-v1-16b-a3b at full width with
+    ``MOE_MOONSHOT_LAYERS`` of its 48 layers, and dbrx-132b at full width
+    with ``MOE_DBRX_LAYERS`` of its 40 layers."""
     import torch
     models = {}
     for arch, n_layers in MOE_ARCHS:
@@ -2329,7 +2382,7 @@ def moe_path(ops, peaks):
 # phase 3: LM training (the entry point at full width; resume, preemption)
 # ---------------------------------------------------------------------------
 
-def train_step_work(cfg, batch, seq):
+def train_step_work(cfg, batch, seq, kept=None):
     """(bf16 tensor-core FLOP, fp32 FLOP) of one training step of
     ``batch`` x ``seq`` tokens, from the code: the weight products run
     forward, again under remat, and backward (two products), 8 FLOP per
@@ -2337,9 +2390,13 @@ def train_step_work(cfg, batch, seq):
     recomputed, 6 per weight and token; the QK^T einsum (fp32) and the PV
     product (bf16) over the full masked S^2, each a product of 2 S^2 d
     FLOP per sequence and layer, in 4 passes (forward, remat forward, and
-    the two products of the backward)."""
+    the two products of the backward); 3 passes without remat. An MoE
+    config's FFN instead: the fp32 router, 2 D E FLOP a token and layer,
+    and the experts' three products over the ``kept`` (token, choice)
+    pairs of one forward summed over its layers (``kept_and_used``), 6 D
+    F FLOP each, in as many passes."""
     tokens = batch * seq
-    n_mat = 3 if cfg.mlp_act == "swiglu" else 2
+    n_mat = 0 if cfg.moe else 3 if cfg.mlp_act == "swiglu" else 2
     weights = cfg.n_layers * (cfg._per_layer_attn()
                               + n_mat * cfg.d_model * cfg.d_ff)
     passes = 4 if cfg.remat else 3
@@ -2347,8 +2404,13 @@ def train_step_work(cfg, batch, seq):
         * cfg.n_layers
     weight_flop = (passes * 2) * weights * tokens
     head_flop = 6 * cfg.vocab_size * cfg.d_model * tokens
-    return (weight_flop + passes * per_pass,
-            head_flop + passes * per_pass)
+    bf16, fp32 = (weight_flop + passes * per_pass,
+                  head_flop + passes * per_pass)
+    if cfg.moe:
+        bf16 += passes * 6 * cfg.d_model * cfg.d_ff * kept
+        fp32 += passes * 2 * tokens * cfg.d_model * cfg.n_experts \
+            * cfg.n_layers
+    return bf16, fp32
 
 
 def _kernel_category(name: str) -> str:
@@ -2590,6 +2652,466 @@ def train_resume():
 
 
 # ---------------------------------------------------------------------------
+# phase 3: the step builders (repro_torch.launch.steps) at full width
+# ---------------------------------------------------------------------------
+
+def _synced(fn):
+    """``fn()`` between two synchronisations of the card: (result, s)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _cut(cell, **kw):
+    """``cell`` with ``kw`` replaced, and the cut as {field: [was, now]}."""
+    import dataclasses
+    return (dataclasses.replace(cell, **kw),
+            {k: [getattr(cell, k), v] for k, v in kw.items()})
+
+
+def _lm_tokens(cfg, B, S, seed, dev):
+    import numpy as np
+    import torch
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.integers(0, cfg.vocab_size, (B, S),
+                                       dtype=np.int32)).to(dev)
+
+
+def _launches_since(ops, before):
+    return {k: ops.LAUNCHES[k] - before[k] for k in before}
+
+
+def _bound(work, nbytes, peaks):
+    """``{"bound_ms", "bound_by"}``: the larger of ``work`` (categories of
+    (bf16, fp32) FLOP) at the peak rates and ``nbytes`` at the memory
+    rate."""
+    op_s, by_s = work_s(work, peaks), nbytes / peaks["bytes"]
+    return {"bound_ms": 1e3 * max(op_s, by_s),
+            "bound_by": "operations" if op_s >= by_s else "bytes"}
+
+
+def steps_train_cell(ops, peaks, cfg, cell, cut, policies, n_steps):
+    """``cell`` through ``steps.build_lm`` under each remat policy in
+    ``policies``: ``n_steps`` steps from ``transformer.init(cfg, seed=0)``
+    (restored bit for bit before each policy) on the same seeded batches,
+    each step between two synchronisations of the card; per policy the
+    ms/step (median of steps 2 to N), peak GB, the launches and one more
+    step under the profiler (idle share); the losses and the final
+    parameters bitwise equal under every policy. The bound: the larger
+    of ``train_step_work`` without remat's recompute (3 passes; for MoE
+    on the kept choices of the first batch, counted in a forward of its
+    micro-batches without gradients) and ``train_bytes``."""
+    import dataclasses
+    import math
+    import statistics
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import param_leaves
+
+    params, init_s = _synced(lambda: T.init(cfg, seed=0, device="cuda"))
+    leaves = param_leaves(params)
+    base = [t.to("cpu", copy=True) for t in leaves]        # host copies
+    B, S = cell.global_batch, cell.seq_len
+    n_mb = max(1, cfg.train_microbatches)
+    batches = []
+    for i in range(n_steps):
+        toks = _lm_tokens(cfg, B, S + 1, 100 + i, leaves[0].device)
+        batches.append({"tokens": toks[:, :-1].contiguous(),
+                        "labels": toks[:, 1:].contiguous()})
+    kept = None
+    if cfg.moe:
+        with torch.no_grad(), recorded_routes() as routed:
+            for i in range(n_mb):
+                rows = batches[0]["tokens"][i * B // n_mb:
+                                            (i + 1) * B // n_mb]
+                T.forward(params, rows, cfg)
+        kept = kept_and_used(routed)[0]
+    out = {"cell": f"{cfg.name}:{cell.name}", "cut": cut,
+           "layers": cfg.n_layers, "params": sum(t.numel() for t in leaves),
+           "init_s": init_s, "batch": B, "seq": S, "microbatches": n_mb,
+           "steps": n_steps, "kept_choices": kept, "policies": {}}
+    want = None
+    for policy in policies:
+        spec = steps.build_lm(dataclasses.replace(cfg, remat_policy=policy),
+                              cell)
+        with torch.no_grad():
+            for t, b in zip(leaves, base):
+                t.copy_(b)
+        state = opt.init(leaves)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(ops.LAUNCHES)
+        walls, losses = [], []
+        for b in batches:
+            (_, _, loss), w = _synced(lambda: spec.fn(params, state, b))
+            walls.append(w)
+            losses.append(float(loss))
+        launches = _launches_since(ops, before)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(all(math.isfinite(x) for x in losses),
+              f"{out['cell']} {policy}: losses {losses}")
+        per_call = cfg.n_layers * n_mb * (2 if cfg.remat else 1)
+        want_l = {"topk": per_call * n_steps if cfg.moe else 0}
+        check(all(launches[k] == want_l.get(k, 0) for k in launches),
+              f"{out['cell']} {policy} launched {launches}, expected "
+              f"{want_l}")
+        final = [t.to("cpu", copy=True) for t in leaves]
+        if want is None:
+            want = (losses, final)
+        else:
+            check(losses == want[0]
+                  and all(torch.equal(a, b) for a, b in zip(final, want[1])),
+                  f"{out['cell']}: remat {policy} differs from "
+                  f"{policies[0]}: losses {losses} against {want[0]}")
+        del final
+        med = statistics.median(walls[1:])
+        profiled = step_profile(lambda: spec.fn(params, state, batches[0]),
+                                med)
+        del state
+        torch.cuda.empty_cache()
+        out["policies"][policy] = {
+            "ms_per_step": 1e3 * med,
+            "ms_per_step_all": [1e3 * w for w in walls],
+            "tokens_per_s": B * S / med, "peak_memory_gb": peak,
+            "losses": losses, "launches": launches,
+            "idle_share": profiled["idle_share"],
+            "device_busy_ms": profiled["device_busy_ms"],
+            "ms_by_category": profiled["ms_by_category"]}
+    if len(policies) > 1:
+        out["policies_bitwise_equal"] = True
+    bf16, fp32 = train_step_work(dataclasses.replace(cfg, remat=False),
+                                 B, S, kept)
+    out.update(_bound({"step": (bf16, fp32)},
+                      train_bytes(out["params"], 2), peaks))
+    out["code_tflop_per_step"] = sum(train_step_work(cfg, B, S, kept)) / 1e12
+    del params, leaves, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def steps_prefill_cell(ops, peaks, cfg, params, cell, cut, seed):
+    """``cell`` through ``steps.build_lm`` on seeded prompts: a warm-up and
+    ``STEPS_PREFILL_CALLS`` timed calls (median), each launching
+    ``flash_attention`` once per layer per batch chunk (the long-prefill
+    recipe's halves at d_model >= 6144 and S >= 32768) and no other
+    kernel; the logits finite; peak GB; one call profiled; the bound from
+    the function (``prefill_work``, ``needed_weight_bytes``)."""
+    import statistics
+    import torch
+    from repro_torch.launch import steps
+
+    B, S = cell.global_batch, cell.seq_len
+    spec = steps.build_lm(cfg, cell)
+    chunks = _prefill_chunks(cfg, B, S)
+    tokens = _lm_tokens(cfg, B, S, seed, params["tok_embed"].device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(STEPS_PREFILL_CALLS + 1):
+        before = dict(ops.LAUNCHES)
+        logits, w = _synced(lambda: spec.fn(params, tokens))
+        n = _launches_since(ops, before)
+        want = {"flash_attention": cfg.n_layers * chunks}
+        check(all(n[k] == want.get(k, 0) for k in n),
+              f"{spec.name} launched {n}, expected {want}")
+        if i:
+            walls.append(w)
+    check(logits.shape == (B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{spec.name} logits {tuple(logits.shape)} not finite")
+    med = statistics.median(walls)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    profiled = step_profile(lambda: spec.fn(params, tokens), med)
+    rows = int(torch.unique(tokens).numel())
+    out = {"cell": spec.name, "cut": cut, "layers": cfg.n_layers,
+           "batch": B, "seq": S, "batch_chunks": chunks,
+           "launches_per_call": n, "ms": 1e3 * med,
+           "ms_all": [1e3 * w for w in walls], "tokens_per_s": B * S / med,
+           "peak_memory_gb": peak, "idle_share": profiled["idle_share"],
+           "ms_by_category": profiled["ms_by_category"],
+           "top_kernels": profiled["top_kernels"][:4],
+           **_bound(prefill_work(cfg, B, S),
+                    needed_weight_bytes(params, cfg, rows), peaks)}
+    del logits, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
+def steps_decode_cell(ops, peaks, cfg, params, spec, cut, seed, window=0):
+    """``STEPS_DECODE_STEPS`` steps of ``spec`` (a built decode step) on a
+    cache of the cell's length filled with seeded normals, at its last
+    positions (a window variant's, built with ``window``, past it), each
+    between two
+    synchronisations (median of steps 2 to N); the logits finite; no
+    kernel launched; the bound: the function's bytes a step (the weights
+    it reads, the cache slots its attention reads: all filled ones, or
+    the window's, and the slot it writes), beside them the code's (every
+    weight and the whole cache)."""
+    import statistics
+    import torch
+    from repro_torch.models import transformer as T
+
+    token_shape = spec.args[2].shape
+    B, S = token_shape[0], spec.args[1]["k"].shape[2]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = params["tok_embed"].device
+    cache = T.init_cache(cfg, B, S, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for x in cache.values():
+        x.normal_(generator=g)
+    toks = _lm_tokens(cfg, B, STEPS_DECODE_STEPS, seed, dev)
+    start = S - STEPS_DECODE_STEPS
+    before = dict(ops.LAUNCHES)
+    walls = []
+    for t in range(STEPS_DECODE_STEPS):
+        (logits, cache), w = _synced(lambda: spec.fn(
+            params, cache, toks[:, t:t + 1], start + t))
+        walls.append(w)
+    launches = _launches_since(ops, before)
+    check(sum(launches.values()) == 0,
+          f"{spec.name} decode launched {launches}")
+    check(logits.shape == (B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{spec.name} decode logits not finite")
+    med = statistics.median(walls[1:])
+    cache_bytes = sum(x.numel() * x.element_size() for x in cache.values())
+    slot = cache_bytes / S
+    read = [min(start + t + 1, window or S)
+            for t in range(STEPS_DECODE_STEPS)]
+    nbytes = (needed_weight_bytes(params, cfg, B)
+              + (statistics.mean(read) + 1) * slot)
+    out = {"cell": spec.name, "cut": cut, "layers": cfg.n_layers,
+           "batch": B, "cache_slots": S, "window": window,
+           "positions": [start, start + STEPS_DECODE_STEPS - 1],
+           "cache_gb": cache_bytes / 1e9, "ms_per_token": 1e3 * med,
+           "ms_per_token_all": [1e3 * w for w in walls],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           **_bound({}, nbytes, peaks),
+           "code_bytes_ms": 1e3 * (tree_bytes(params) + cache_bytes)
+           / peaks["bytes"]}
+    del cache, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def steps_path(ops, peaks):
+    """The LM cells of ``repro_torch.launch.steps`` on the card at full
+    width in bf16, built with ``steps.build_lm``/``build_lm_long_window``
+    (every global batch cut to one card, each cut printed) and run on
+    parameters from ``transformer.init(cfg, seed=0)`` and seeded data:
+    olmo-1b's train_4k at batch ``STEPS_TRAIN_BATCH`` under the remat
+    policies ``nothing``, ``dots_nobatch`` and ``dots`` (bitwise equal),
+    prefill_32k at batch ``STEPS_PREFILL_BATCH`` (the serve step's flash
+    route: 16 ``flash_attention`` launches a call), decode_32k, and
+    long_500k (its ``skip_reason``, then the window variant's decode with
+    its cache cut to ``STEPS_WINDOW_SLOTS``); granite-34b with
+    ``STEPS_GRANITE_LAYERS`` layers (prefill_32k through the long-prefill
+    recipe: 2 halves, 8 launches a call; decode_32k); moonshot-v1-16b-a3b
+    with ``STEPS_MOE_LAYERS`` layers, train_4k at batch
+    ``STEPS_MOE_BATCH`` in its config's micro-batches (``topk`` once per
+    layer per micro-batch, twice under remat). The launch counters are
+    zeroed before and read after: ``flash_attention`` and ``topk`` must
+    have launched. ``long_prefill_checks`` holds the prefill cells'
+    kernel and route against references after the counters are read."""
+    import torch
+    from repro_torch.common.config import LM_SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    ops.reset_launches()
+    cells = []
+    t_path = time.perf_counter()
+
+    cfg = lm_config()
+    cell, cut = _cut(LM_SHAPES["train_4k"], global_batch=STEPS_TRAIN_BATCH)
+    cells.append(steps_train_cell(ops, peaks, cfg, cell, cut,
+                                  ("nothing", "dots_nobatch", "dots"),
+                                  STEPS_TRAIN_STEPS))
+    params = T.init(cfg, seed=0, device="cuda")
+    cell, cut = _cut(LM_SHAPES["prefill_32k"],
+                     global_batch=STEPS_PREFILL_BATCH)
+    cells.append(steps_prefill_cell(ops, peaks, cfg, params, cell, cut, 1))
+    cell, cut = _cut(LM_SHAPES["decode_32k"],
+                     global_batch=STEPS_DECODE_BATCH[LM_ARCH])
+    cells.append(steps_decode_cell(ops, peaks, cfg, params,
+                                   steps.build_lm(cfg, cell), cut, 2))
+    skipped = steps.build(LM_ARCH, "long_500k")
+    check(skipped.fn is None and skipped.skip_reason,
+          "long_500k built a full-attention step")
+    cell, cut = _cut(LM_SHAPES["long_500k"], seq_len=STEPS_WINDOW_SLOTS)
+    window = 8192
+    cells.append(dict(steps_decode_cell(
+        ops, peaks, cfg, params,
+        steps.build_lm_long_window(cfg, cell, window=window), cut, 3,
+        window=window), skip_reason=skipped.skip_reason))
+    del params
+    torch.cuda.empty_cache()
+
+    arch = "granite-34b"
+    cfg = lm_config(arch, n_layers=STEPS_GRANITE_LAYERS)
+    layers_cut = {"n_layers": [lm_config(arch).n_layers, cfg.n_layers]}
+    params, init_s = _synced(lambda: T.init(cfg, seed=0, device="cuda"))
+    cell, cut = _cut(LM_SHAPES["prefill_32k"],
+                     global_batch=STEPS_PREFILL_BATCH)
+    cells.append(dict(steps_prefill_cell(ops, peaks, cfg, params, cell,
+                                         dict(cut, **layers_cut), 4),
+                      init_s=init_s))
+    cell, cut = _cut(LM_SHAPES["decode_32k"],
+                     global_batch=STEPS_DECODE_BATCH[arch])
+    cells.append(steps_decode_cell(ops, peaks, cfg, params,
+                                   steps.build_lm(cfg, cell),
+                                   dict(cut, **layers_cut), 5))
+    del params
+    torch.cuda.empty_cache()
+
+    arch = "moonshot-v1-16b-a3b"
+    cfg = lm_config(arch, n_layers=STEPS_MOE_LAYERS)
+    cell, cut = _cut(LM_SHAPES["train_4k"], global_batch=STEPS_MOE_BATCH)
+    cut["n_layers"] = [lm_config(arch).n_layers, cfg.n_layers]
+    cells.append(steps_train_cell(ops, peaks, cfg, cell, cut,
+                                  (cfg.remat_policy,), STEPS_MOE_STEPS))
+    launches = dict(ops.LAUNCHES)
+    check(launches["flash_attention"] > 0 and launches["topk"] > 0,
+          f"the steps path's kernels never launched: {launches}")
+    return {"cells": cells, "launches": launches,
+            "path_s": time.perf_counter() - t_path}
+
+
+def _prefill_chunks(cfg, B, S):
+    """The batch chunks of a built prefill step: the long-prefill recipe's
+    halves at d_model >= 6144 and S >= 32768, else one."""
+    return 2 if (cfg.prefill_batch_chunks == 0 and cfg.d_model >= 6144
+                 and S >= 32768 and B % 2 == 0) else 1
+
+
+def _flash_plain_blocked(q, k, v, block):
+    """The plain version's causal attention, ``ref.flash_attention_ref``'s
+    arithmetic (fp32 scores times 1/sqrt(dh), the columns past each row
+    masked, softmax, fp32 p.v, cast to q's dtype), one block of ``block``
+    query rows at a time against the keys up to the block's end: whole,
+    the scores would take B*H*S^2*4 bytes (137 GB at olmo-1b's
+    prefill_32k cell)."""
+    import math
+    import torch
+    B, S, H, dh = q.shape
+    out = torch.empty_like(q)
+    for q0 in range(0, S, block):
+        q1 = min(q0 + block, S)
+        s = torch.einsum("bqhd,bkhd->bhqk", q[:, q0:q1].float(),
+                         k[:, :q1].float()) * (1.0 / math.sqrt(dh))
+        rows = torch.arange(q0, q1, device=q.device)[:, None]
+        cols = torch.arange(q1, device=q.device)[None, :]
+        w = torch.softmax(s.masked_fill_(cols > rows, -math.inf), dim=-1)
+        del s
+        out[:, q0:q1] = torch.einsum("bhqk,bkhd->bqhd", w,
+                                     v[:, :q1].float()).to(q.dtype)
+    return out
+
+
+def long_prefill_checks(ops, peaks):
+    """The steps path's prefill at S = 32768, checked after its launch
+    counters were read. For olmo-1b and granite-34b: ``flash_attention``
+    at the shape the built prefill step launches it at (olmo-1b's cell,
+    B = 2, H = 16; one of granite-34b's halves, B = 1, H = 48, its one
+    K/V head repeated; dh = 128, bf16, causal) on seeded normals, against
+    the plain version block by block over the queries
+    (``_flash_plain_blocked``, 1024 rows a block, the last one included),
+    every element within ``check_flash_attention``'s bf16 tolerance (atol
+    1e-4, rtol 2**-7); its time (CUDA events over 5 calls, and the
+    profiler's device time, None where it records no event) beside the
+    blocked plain version's and SDPA's on the (B, H, S, dh) view, and
+    ``flash_bound``. Then the built prefill step at the cell
+    with ``STEPS_CHECK_LAYERS`` layers in fp32 (weights from
+    ``transformer.init(cfg, seed=0)``): its logits, through the flash
+    route (``flash_attention`` once per layer per batch chunk), against
+    ``transformer.prefill``'s einsum route with 1024-row query blocks (the
+    recipe's blocking), one prompt at a time, within ``lm_path``'s 1e-4
+    of the largest |logit|."""
+    import dataclasses
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.common.config import LM_SHAPES
+    from repro_torch.common.device import resolve_device
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+
+    dev = resolve_device("cuda")
+    kernel, built = [], []
+    cell = dataclasses.replace(LM_SHAPES["prefill_32k"],
+                               global_batch=STEPS_PREFILL_BATCH)
+    B, S = cell.global_batch, cell.seq_len
+    for i, arch in enumerate(("olmo-1b", "granite-34b")):
+        cfg = lm_config(arch)
+        chunks = _prefill_chunks(cfg, B, S)
+        shape = (B // chunks, S, cfg.n_heads, cfg.head_dim)
+        g = torch.Generator(device=dev).manual_seed(40 + i)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(3))
+        got = ops.flash_attention(q, k, v, causal=True)
+        want = _flash_plain_blocked(q, k, v, 1024)
+        diff = (got.float() - want.float()).abs()
+        bad = int((diff > 1e-4 + 2 ** -7 * want.float().abs()).sum())
+        check(bad == 0, f"flash_attention {shape} bf16 against the blocked "
+              f"plain version: {bad} elements off, max |diff| "
+              f"{float(diff.max())}")
+        max_err = float(diff.max())
+        del got, want, diff
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        bound = flash_bound(q, peaks)
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True),
+                     iters=5, warmup=2)
+        dev_ms, events = device_ms(
+            lambda: ops.flash_attention(q, k, v, causal=True), iters=3,
+            capturable=False)
+        kernel.append({
+            "arch": arch, **bound, "batch_chunks": chunks,
+            "max_abs_err": max_err, "atol": 1e-4, "rtol": 2 ** -7,
+            "ms": ms, "device_ms": dev_ms, "device_events_per_call": events,
+            "plain": "blocked over 1024 query rows",
+            "plain_ms": time_ms(lambda: _flash_plain_blocked(q, k, v, 1024),
+                                iters=1, warmup=0),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), iters=5, warmup=2),
+            "tensor_tflops": bound["tensor_gflop"] / (dev_ms or ms),
+            "bound_share": bound["bound_ms"] / (dev_ms or ms)})
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+        cfg32 = lm_config(arch, n_layers=STEPS_CHECK_LAYERS,
+                          dtype="float32")
+        params = T.init(cfg32, seed=0, device=dev)
+        tokens = _lm_tokens(cfg32, B, S, 50 + i, dev)
+        spec = steps.build_lm(cfg32, cell)
+        before = dict(ops.LAUNCHES)
+        got, flash_s = _synced(lambda: spec.fn(params, tokens))
+        n = _launches_since(ops, before)
+        check(n["flash_attention"] == STEPS_CHECK_LAYERS * chunks,
+              f"{spec.name} fp32 launched {n}")
+        ecfg = dataclasses.replace(cfg32, attn_q_chunk=1024)
+        want, einsum_s = _synced(lambda: torch.cat([
+            T.prefill(params, tokens[b:b + 1], ecfg, attn_impl="einsum")
+            for b in range(B)]))
+        rel = _rel_err(got, want)
+        check(rel <= 1e-4, f"{spec.name} fp32 at {STEPS_CHECK_LAYERS} "
+              f"layers, the flash route against the einsum route with "
+              f"1024-row query blocks: {rel} of the largest |logit|")
+        built.append({"cell": spec.name, "layers": STEPS_CHECK_LAYERS,
+                      "dtype": "float32", "batch": B, "seq": S,
+                      "batch_chunks": chunks, "launches": n,
+                      "flash_vs_einsum_rel": rel, "tolerance": 1e-4,
+                      "flash_s": flash_s, "einsum_s": einsum_s})
+        del params, tokens, got, want
+        torch.cuda.empty_cache()
+    return {"flash_attention": kernel, "prefill_fp32": built}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the vision and diffusion models (ViT, DeiT, DiT, EfficientNet)
 # ---------------------------------------------------------------------------
 
@@ -2799,38 +3321,85 @@ def _finite(t, shape, what):
           f"{bool(torch.isfinite(t).all())}")
 
 
+def built_train_entry(ops, peaks, spec, step, n_params, work, passes):
+    """``STEPS_VISION_STEPS`` calls of ``step`` (one step of the built
+    train ``spec`` on the model's weights, in place), each between two
+    synchronisations of the card: ms/step (median of steps 2 to N), the
+    loss finite at every step, peak GB, no kernel launched, and the
+    bound as ``train_entry`` counts it (3 passes of the function's
+    ``work``; ``passes``, the code's, beside it)."""
+    import math
+    import statistics
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(ops.LAUNCHES)
+    walls, losses = [], []
+    for _ in range(STEPS_VISION_STEPS):
+        loss, w = _synced(step)
+        walls.append(w)
+        losses.append(float(loss))
+    launches = _launches_since(ops, before)
+    check(sum(launches.values()) == 0 and all(map(math.isfinite, losses)),
+          f"{spec.name}: launches {launches}, losses {losses}")
+    med = statistics.median(walls[1:])
+    bound = vision_bound(work, train_bytes(n_params, 2), peaks, 3, passes)
+    return {"cell": spec.name, "ms_per_step": 1e3 * med,
+            "ms_per_step_all": [1e3 * w for w in walls],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": losses, "code_passes": passes,
+            "bound_ms_per_step": bound["bound_ms"],
+            "bound_by": bound["bound_by"],
+            "bound_share": bound["bound_ms"] / (1e3 * med),
+            "code_extra_ms_at_peak": bound["code_extra_ms_at_peak"]}
+
+
 def vision_path(ops, peaks):
     """The vision and diffusion models at full width in their configs'
-    bf16, on the card: vit-l16 (init; forward at serve_b128 and at
-    cls_384 with the pos table resized 14 -> 24, and ``features_only``;
-    then ``launch.train --arch vit-l16 --full`` at batch
-    ``VIT_TRAIN_BATCH`` with remat), deit-b (forward at batch
-    ``DEIT_BATCH``), dit-b2 (the DDIM ``sample`` at gen_fast: 512 px ->
-    64 x 64 x 4 latents, 1024 tokens, 16 latents, 4 steps; then
-    ``launch.train --arch dit-b2 --full`` at 256 px) and efficientnet-b7
-    (eval forward at 600 px, batch ``EFF_BATCH``; then ``launch.train
-    --arch efficientnet-b7 --full``). Each line: images/s (ms per sampler
-    step for DiT), ms per training step, peak GB, and the bound from the
-    function's operations and bytes (``vision_bound``: every product on
-    the bf16 tensor cores, 3 passes a training step), with the code's
-    extra work (q.k^T in fp32, remat's recompute) beside it. None of the six kernels launches (the
-    JAX package's models attend with ``causal=False``, and its flash
-    route is causal only, ``models/layers.py:161``)."""
+    bf16, on the card, served and trained through the built steps of
+    ``repro_torch.launch.steps`` (each cell's cut printed): vit-l16 (init;
+    the serve step at serve_b128 and at cls_384's shape as a serve cell,
+    with the pos table resized 14 -> 24, and ``features_only``; a built
+    cls_224 train step at batch ``STEPS_VISION_BATCH``; then
+    ``launch.train --arch vit-l16 --full`` at batch ``VIT_TRAIN_BATCH``
+    with remat), deit-b (the serve step at batch ``DEIT_BATCH``), dit-b2
+    (the gen_fast serve step, the DDIM ``sample``: 512 px -> 64 x 64 x 4
+    latents, 1024 tokens, 16 latents, 4 steps; a built train_256 step at
+    a small batch; then ``launch.train --arch dit-b2 --full`` at 256 px)
+    and efficientnet-b7 (the serve step at 600 px, batch ``EFF_BATCH``;
+    a built cls_224 train step at a small batch; then ``launch.train
+    --arch efficientnet-b7 --full``). Each line: images/s (ms per
+    sampler step for DiT), ms per training step, peak GB, and the bound
+    from the function's operations and bytes (``vision_bound``: every
+    product on the bf16 tensor cores, 3 passes a training step), with the
+    code's extra work (q.k^T in fp32, remat's recompute) beside it. None
+    of the six kernels launches (the JAX package's models attend with
+    ``causal=False``, and its flash route is causal only,
+    ``models/layers.py:161``)."""
     import torch
     from repro_torch.common.config import DIT_SHAPES, VISION_SHAPES
     from repro_torch.common.device import resolve_device
-    from repro_torch.common import prng
+    from repro_torch.launch import steps
     from repro_torch.models import dit as D
     from repro_torch.models import efficientnet as E
     from repro_torch.models import vit as V
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import param_leaves
 
     dev = resolve_device("cuda")
     ops.reset_launches()
     out = {}
 
+    def labels(B, n):
+        return torch.arange(B, device=dev, dtype=torch.int32) % n
+
     # vit-l16: the Focus GT-CNN
     cfg = vision_config("vit-l16")
-    serve, cls384 = VISION_SHAPES["serve_b128"], VISION_SHAPES["cls_384"]
+    serve, cut384 = VISION_SHAPES["serve_b128"], _cut(
+        VISION_SHAPES["cls_384"], kind="serve")
+    cls384 = cut384[0]
+    serve_step = steps.build_vit(cfg, serve).fn
+    serve384 = steps.build_vit(cfg, cls384).fn
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2847,7 +3416,7 @@ def vision_path(ops, peaks):
     v = {"params": n_params, "init_s": init_s,
          "tokens": cfg.n_tokens(serve.img_res)}
     v["serve_b128"] = forward_entry(
-        lambda: V.forward(params, x, cfg), peaks,
+        lambda: serve_step(params, x), peaks,
         partial(vit_work, cfg, serve.global_batch, serve.img_res), nbytes,
         serve.global_batch,
         lambda o: _finite(o, (serve.global_batch, cfg.n_classes),
@@ -2861,20 +3430,30 @@ def vision_path(ops, peaks):
     del x
     x = _images(cls384.global_batch, cls384.img_res, 1, dev)
     v["cls_384"] = dict(forward_entry(
-        lambda: V.forward(params, x, cfg), peaks,
+        lambda: serve384(params, x), peaks,
         partial(vit_work, cfg, cls384.global_batch, cls384.img_res),
         wbytes + x.numel() * 4, cls384.global_batch,
         lambda o: _finite(o, (cls384.global_batch, cfg.n_classes),
                           "vit-l16 logits at 384"), VISION_ITERS),
-        tokens=cfg.n_tokens(cls384.img_res),
+        cut=cut384[1], tokens=cfg.n_tokens(cls384.img_res),
         pos_grid=[cfg.img_res // cfg.patch, cls384.img_res // cfg.patch])
     v["forward_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     step_s = v["serve_b128"]["ms"] / 1e3
     with torch.no_grad():
         x = _images(serve.global_batch, serve.img_res, 0, dev)
         v["serve_b128_profile"] = step_profile(
-            lambda: V.forward(params, x, cfg), step_s)
-    del params, x
+            lambda: serve_step(params, x), step_s)
+    del x
+    cell, cut = _cut(VISION_SHAPES["cls_224"], global_batch=STEPS_VISION_BATCH)
+    spec = steps.build_vit(cfg, cell)
+    state = opt.init(param_leaves(params))
+    batch = {"images": _images(cell.global_batch, cell.img_res, 4, dev),
+             "labels": labels(cell.global_batch, cfg.n_classes)}
+    v["built_train"] = dict(built_train_entry(
+        ops, peaks, spec, lambda: spec.fn(params, state, batch)[-1],
+        n_params, partial(vit_work, cfg, cell.global_batch, cell.img_res),
+        4 if cfg.remat else 3), cut=cut)
+    del params, state, batch
     torch.cuda.empty_cache()
     v["train"] = train_entry(
         ops, peaks, "vit-l16", VIT_TRAIN_BATCH, VISION_TRAIN_STEPS,
@@ -2883,6 +3462,7 @@ def vision_path(ops, peaks):
 
     # deit-b: the distillation token and its second head
     cfg = vision_config("deit-b")
+    serve_step = steps.build_vit(cfg, serve).fn
     torch.cuda.reset_peak_memory_stats()
     params = V.init(cfg, seed=0, device="cuda")
     x = _images(DEIT_BATCH, cfg.img_res, 2, dev)
@@ -2890,7 +3470,7 @@ def vision_path(ops, peaks):
         "params": sum(t.numel() for t in _flat_tree(params)),
         "tokens": cfg.n_tokens(),
         "serve": forward_entry(
-            lambda: V.forward(params, x, cfg), peaks,
+            lambda: serve_step(params, x), peaks,
             partial(vit_work, cfg, DEIT_BATCH, cfg.img_res),
             tree_bytes(params) + x.numel() * 4, DEIT_BATCH,
             lambda o: _finite(o, (DEIT_BATCH, cfg.n_classes),
@@ -2902,17 +3482,17 @@ def vision_path(ops, peaks):
     # dit-b2: the DDIM sampler at gen_fast, then training at 256 px
     cfg = vision_config("dit-b2")
     gen = DIT_SHAPES["gen_fast"]
+    sample = steps.build_dit(cfg, gen).fn
     torch.cuda.reset_peak_memory_stats()
     params = D.init(cfg, seed=0, device="cuda")
-    labels = torch.arange(gen.global_batch, device=dev) % cfg.n_classes
-    key = prng.key(0)
+    ys = labels(gen.global_batch, cfg.n_classes)
+    seed = torch.zeros(2, dtype=torch.uint32)        # key(0)
     res = gen.img_res // cfg.vae_factor
     with torch.no_grad():
-        lat = D.sample(params, key, labels, cfg, gen.img_res, gen.steps)
+        lat = sample(params, ys, seed)
         _finite(lat, (gen.global_batch, res, res, cfg.latent_channels),
                 "dit-b2 sample")
-        sample_ms = time_ms(lambda: D.sample(params, key, labels, cfg,
-                                             gen.img_res, gen.steps),
+        sample_ms = time_ms(lambda: sample(params, ys, seed),
                             iters=VISION_ITERS // 2, warmup=1)
     work = partial(dit_work, cfg, gen.global_batch, gen.img_res)
     bound = vision_bound(work, tree_bytes(params) * gen.steps
@@ -2933,7 +3513,22 @@ def vision_path(ops, peaks):
                      "pos_grid": [int(cfg.n_tokens() ** 0.5),
                                   int(cfg.n_tokens(gen.img_res) ** 0.5)]},
         "sample_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-    del params, lat
+    del lat
+    cell, cut = _cut(DIT_SHAPES["train_256"], global_batch=STEPS_VISION_BATCH)
+    spec = steps.build_dit(cfg, cell)
+    state = opt.init(param_leaves(params))
+    res = cell.img_res // cfg.vae_factor
+    g = torch.Generator(device=dev).manual_seed(5)
+    batch = {"latents": torch.randn(cell.global_batch, res, res,
+                                    cfg.latent_channels, generator=g,
+                                    device=dev),
+             "labels": labels(cell.global_batch, cfg.n_classes)}
+    out["dit-b2"]["built_train"] = dict(built_train_entry(
+        ops, peaks, spec, lambda: spec.fn(params, state, batch, seed)[-1],
+        out["dit-b2"]["params"],
+        partial(dit_work, cfg, cell.global_batch, cell.img_res),
+        4 if cfg.remat else 3), cut=cut)
+    del params, state, batch
     torch.cuda.empty_cache()
     out["dit-b2"]["train"] = train_entry(
         ops, peaks, "dit-b2", DIT_TRAIN_BATCH, VISION_TRAIN_STEPS,
@@ -2941,23 +3536,42 @@ def vision_path(ops, peaks):
 
     # efficientnet-b7 at its native 600 px: eval forward, then training
     cfg = vision_config("efficientnet-b7")
+    cell600, cut600 = _cut(serve, img_res=cfg.img_res, global_batch=EFF_BATCH)
+    serve_step = steps.build_effnet(cfg, cell600).fn
     torch.cuda.reset_peak_memory_stats()
-    params, state = E.init(cfg, seed=0, device="cuda")
+    params, bn = E.init(cfg, seed=0, device="cuda")
     x = _images(EFF_BATCH, cfg.img_res, 3, dev)
     e = {"params": sum(t.numel() for t in _flat_tree(params)),
          "blocks": len(E.block_specs(cfg)),
          "gflop_per_image": E.flops_per_image(cfg) / 1e9}
-    e["eval"] = forward_entry(
-        lambda: E.forward(params, state, x, cfg)[0], peaks,
+    e["eval"] = dict(forward_entry(
+        lambda: serve_step(params, bn, x), peaks,
         partial(effnet_work, cfg, EFF_BATCH, cfg.img_res),
         tree_bytes(params) + x.numel() * 4, EFF_BATCH,
         lambda o: _finite(o, (EFF_BATCH, cfg.n_classes),
-                          "efficientnet-b7 logits"), VISION_ITERS)
+                          "efficientnet-b7 logits"), VISION_ITERS),
+        cut=cut600)
     e["eval_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     with torch.no_grad():
         e["eval_profile"] = step_profile(
-            lambda: E.forward(params, state, x, cfg), e["eval"]["ms"] / 1e3)
-    del params, state, x
+            lambda: serve_step(params, bn, x), e["eval"]["ms"] / 1e3)
+    del x
+    cell, cut = _cut(VISION_SHAPES["cls_224"], global_batch=STEPS_VISION_BATCH)
+    spec = steps.build_effnet(cfg, cell)
+    state = opt.init(param_leaves(params))
+    batch = {"images": _images(cell.global_batch, cell.img_res, 6, dev),
+             "labels": labels(cell.global_batch, cfg.n_classes)}
+    held = {"bn": bn}
+
+    def effnet_step():
+        _, held["bn"], _, loss = spec.fn(params, held["bn"], state, batch)
+        return loss
+    # EfficientNet checkpoints nothing (neither package reads its remat)
+    e["built_train"] = dict(built_train_entry(
+        ops, peaks, spec, effnet_step, e["params"],
+        partial(effnet_work, cfg, cell.global_batch, cell.img_res), 3),
+        cut=cut)
+    del params, bn, state, batch, held
     torch.cuda.empty_cache()
     e["train"] = train_entry(
         ops, peaks, "efficientnet-b7", EFF_TRAIN_BATCH, EFF_TRAIN_STEPS,
@@ -4078,6 +4692,18 @@ def main():
         entry["launches_train_path"] = trained["launches"][entry["name"]]
     emit({"phase": "train_resume", "gpu": smi, **train_resume(),
           "elapsed_s": elapsed()})
+    built = steps_path(ops, peaks)
+    for cell in built["cells"]:
+        emit({"phase": "steps_path", "gpu": smi, **cell,
+              "elapsed_s": elapsed()})
+    emit({"phase": "steps_path", "gpu": smi, "launches": built["launches"],
+          "path_s": built["path_s"], "elapsed_s": elapsed()})
+    fa["launches_steps_path"] = built["launches"]["flash_attention"]
+    tk["launches_steps_path"] = built["launches"]["topk"]
+    long_s = long_prefill_checks(ops, peaks)
+    emit({"phase": "steps_path_checks", "gpu": smi, **long_s,
+          "elapsed_s": elapsed()})
+    fa["steps_path_s32768"] = long_s["flash_attention"]
     t_vision = time.perf_counter()
     vision = vision_path(ops, peaks)
     for model in ("vit-l16", "deit-b", "dit-b2", "efficientnet-b7"):

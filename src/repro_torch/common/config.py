@@ -38,16 +38,20 @@ class LMConfig:
     """A decoder-only LM, field for field the JAX package's ``LMConfig``.
 
     ``remat`` and ``remat_policy`` hold: ``models.transformer.forward``
-    checkpoints each layer's activations when gradients are wanted
-    (``"nothing"`` only; ``models.layers.remat_policy``). The fields that
-    only lay the model out over a TPU mesh or schedule its training
-    (``act_sharding``, ``parallelism``, ``grad_reduce_dtype``,
-    ``scan_layers``, ``train_microbatches``, ``prefill_batch_chunks``)
-    are kept so configs copy verbatim; one card ignores them (the train
-    loop takes its micro-batches from ``TrainConfig``, as the JAX
-    package's does). The MoE fields (``moe=True``) select
-    ``models.layers.moe`` in place of the dense MLP: GShard dispatch over
-    groups of ``moe_group_size`` tokens, in either ``moe_dispatch`` mode.
+    checkpoints each layer's activations when gradients are wanted, under
+    any of JAX's three policies (``models.layers.remat_policy``). The
+    step builders (``launch.steps``) read the step-level fields:
+    ``train_microbatches`` and ``grad_reduce_dtype`` in the train step,
+    ``prefill_batch_chunks`` in the prefill step, whose long-prefill
+    recipe also rewrites ``act_sharding`` and ``attn_q_chunk``
+    (``attn_q_chunk`` sets the einsum route's query blocks; one card has
+    no residual layout for ``act_sharding`` to choose). Only the mesh
+    layout (``parallelism``, ``scan_layers``) is ignored on one card; the
+    train loop of ``launch.train`` takes its micro-batches from
+    ``TrainConfig``, as the JAX package's does. The MoE fields
+    (``moe=True``) select ``models.layers.moe`` in place of the dense MLP:
+    GShard dispatch over groups of ``moe_group_size`` tokens, in either
+    ``moe_dispatch`` mode.
     """
 
     name: str
@@ -122,8 +126,10 @@ class LMConfig:
 @dataclass(frozen=True)
 class ViTConfig:
     """A ViT or DeiT image classifier, field for field the JAX package's.
-    ``scan_layers`` and ``serve_pure_dp`` only lay the model out over a TPU
-    mesh; one card ignores them."""
+    ``serve_pure_dp`` is read by the serve step (``launch.steps``), which
+    pads the batch to a multiple of the card count: on one card, no pad.
+    ``scan_layers`` only lays the model out over a TPU mesh; one card
+    ignores it."""
 
     name: str
     img_res: int

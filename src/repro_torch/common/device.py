@@ -7,6 +7,10 @@ place that pins fp32 on the card: cuDNN convolutions default to TF32,
 which keeps about three decimal digits, so TF32 is switched off for
 convolutions and matrix products, and cuDNN is held to deterministic
 algorithms, before the first forward pass on the card.
+
+``device="meta"`` passes through: meta tensors have shapes and dtypes and
+no storage, which is what the step builders' abstract inputs are
+(``launch.steps``). Nothing runs on them, so this is no fallback.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {str(device)!r}: "
-                         f"expected 'cuda' or 'cpu'")
+                         f"expected 'cuda', 'cpu' or 'meta'")
     return dev

@@ -33,6 +33,11 @@ once to float32, which is exact unless the float64 sum itself rounds onto
 a float32 rounding midpoint. Measured against ``jax.random.normal`` on the
 CPU: see ROADMAP C7. Every operation is elementwise IEEE arithmetic, so the
 card and the CPU draw the same bits.
+
+A key on the ``meta`` device draws shapes only: ``split``, ``normal`` and
+``randint`` return meta tensors of their shapes and dtypes without running
+threefry, so that an ``init`` on ``device="meta"`` (the step builders'
+abstract parameters) returns its tree leaf for leaf at no cost.
 """
 from __future__ import annotations
 
@@ -111,6 +116,8 @@ def _counters(start: int, stop: int, device: torch.device):
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)``: (num, 2) keys on ``key``'s device."""
+    if key.is_meta:
+        return key.new_empty((num, 2))
     hi, lo = _counters(0, num, key.device)
     b1, b2 = threefry2x32(key[0], key[1], hi, lo)
     return torch.stack([b1, b2], dim=1)
@@ -204,6 +211,8 @@ def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     in chunks of the flat index so a large draw keeps its temporaries
     bounded."""
     shape = tuple(int(s) for s in shape)
+    if key.is_meta:
+        return torch.empty(shape, dtype=torch.float32, device=key.device)
     n = math.prod(shape)
     out = torch.empty(n, dtype=torch.float32, device=key.device)
     for start in range(0, n, _CHUNK):
@@ -230,6 +239,8 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
     if not all(-2 ** 31 <= v < 2 ** 31 for v in (minval, maxval)):
         raise ValueError(f"randint bounds must fit in int32, got "
                          f"[{minval}, {maxval})")
+    if key.is_meta:
+        return torch.empty(shape, dtype=torch.int32, device=key.device)
     n = math.prod(shape)
     k1, k2 = split(key)
     higher, lower = _bits(k1, 0, n), _bits(k2, 0, n)

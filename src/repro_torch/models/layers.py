@@ -10,8 +10,11 @@ tree (dense weights (d_in, d_out), applied as ``x @ w``; conv weights
 HWIO), activations (B, S, D), heads (B, S, H, dh), images NHWC, a batch
 norm's state ``{"mean", "var"}``. ``*_init`` draws through ``common.prng``
 exactly as the JAX package draws through ``jax.random``. Left out: the
-mesh constraints (one card) and the remat policies that save matrix
-products (``remat_policy`` raises on them).
+mesh constraints (one card). The remat policies are JAX's three
+(``remat_policy``): ``"nothing"`` a plain checkpoint per layer, ``"dots"``
+and ``"dots_nobatch"`` torch's selective checkpointing, which keeps the
+products that JAX's policy saves. ``serve_attn_impl`` is the serve
+step's choice of attention route.
 
 Matrix products stay ``torch.matmul``/``einsum``, as the JAX package
 leaves them to XLA; the kernels of this module's path are
@@ -30,7 +33,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.common import prng
 from repro_torch.hopper import ops
@@ -39,19 +43,58 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "bf16": torch.bfloat16, "f32": torch.float32}
 
 
+_aten = torch.ops.aten
+# the products JAX's policies see as dot_general (and, for "dots",
+# conv_general_dilated), as torch dispatches them: ``x @ W`` folds to
+# ``mm`` (or ``bmm`` against W expanded over the batch), an einsum is a
+# ``bmm`` over its batch dims
+_NO_BATCH = {_aten.mm.default, _aten.addmm.default}
+_BATCHED = {_aten.bmm.default, _aten.baddbmm.default}
+_CONV = {_aten.convolution.default}
+
+
+def _no_batch_dims(func, args) -> bool:
+    """Whether the product ``func(*args)`` has no batch dims in the JAX
+    package's ``dot_general``: an ``mm``, or a ``bmm`` with an operand
+    expanded over the batch (stride 0), which is how ``torch.matmul``
+    multiplies a 3-D operand it cannot fold by a matrix. Any other
+    ``bmm`` comes from an einsum whose batch dims JAX keeps as such
+    (attention's heads, the MoE's groups and experts)."""
+    if func in _NO_BATCH:
+        return True
+    operands = args[1:3] if func is _aten.baddbmm.default else args[:2]
+    return func in _BATCHED and any(t.stride(0) == 0 for t in operands)
+
+
+def _saves_dots(ctx, func, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots``: every product and
+    convolution output saved, the rest recomputed."""
+    return (CheckpointPolicy.MUST_SAVE
+            if func in _NO_BATCH or func in _BATCHED or func in _CONV
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _saves_dots_nobatch(ctx, func, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: the outputs of products with
+    no batch dims saved (projections, MLP, router), the rest recomputed."""
+    return (CheckpointPolicy.MUST_SAVE if _no_batch_dims(func, args)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def remat_policy(name: str):
     """The activation-checkpoint policy of ``cfg.remat_policy``, as the
-    JAX package names them. ``"nothing"`` (every LM config's) saves only
-    each layer's input and recomputes the rest: ``None``, i.e. a plain
-    ``torch.utils.checkpoint.checkpoint`` around the layer. The policies
-    that also save matrix products (``"dots"``, ``"dots_nobatch"``) are
-    not ported yet (ROADMAP A14)."""
+    JAX package names them: ``None`` for ``"nothing"`` (every config's:
+    a plain ``torch.utils.checkpoint.checkpoint`` around the layer, which
+    saves its input and recomputes the rest), else the policy function
+    of torch's selective checkpointing: ``"dots"`` saves every product's
+    output (the fp32 attention scores among them, as JAX does),
+    ``"dots_nobatch"`` only those of products with no batch dims."""
     if name == "nothing":
         return None
-    if name in ("dots", "dots_nobatch"):
-        raise NotImplementedError(
-            f"remat_policy {name!r} is not ported yet (ROADMAP A14); "
-            f"use 'nothing'")
+    if name == "dots":
+        return _saves_dots
+    if name == "dots_nobatch":
+        return _saves_dots_nobatch
     raise ValueError(name)
 
 
@@ -59,21 +102,41 @@ def run_layers(cfg, layer, params: dict, x: torch.Tensor, *args):
     """``layer(cfg, p, x, *args)`` over the stacked layers
     ``params["layers"]`` in order: the JAX package's ``scan`` over the
     stacked axis. With gradients wanted and ``cfg.remat``, each layer runs
-    under an activation checkpoint (``cfg.remat_policy``) that saves its
-    input and recomputes the rest in the backward pass; serving runs
-    without one."""
+    under an activation checkpoint (``remat_policy(cfg.remat_policy)``)
+    that saves its input, and what the policy saves, and recomputes the
+    rest in the backward pass; serving runs without one. Every policy
+    computes the same numbers: a recomputed op gives the bits it gave."""
     remat = (cfg.remat and torch.is_grad_enabled()
              and any(t.requires_grad for t in tree_leaves(params)))
+    kw = {}
     if remat:
-        remat_policy(cfg.remat_policy)
+        policy = remat_policy(cfg.remat_policy)
+        if policy is not None:
+            kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+                policy)
     for p in unstack(params["layers"], cfg.n_layers):
         if remat:
             # the layers draw no random numbers: no RNG state to replay
             x = checkpoint(layer, cfg, p, x, *args, use_reentrant=False,
-                           preserve_rng_state=False)
+                           preserve_rng_state=False, **kw)
         else:
             x = layer(cfg, p, x, *args)
     return x
+
+
+def serve_attn_impl(x: torch.Tensor, head_dim: int, causal: bool = True,
+                    window: int = 0) -> str:
+    """The serve step's attention route for activations ``x``:
+    ``"flash"`` (the ``flash_attention`` kernel) when the attention is
+    causal without a window, the head width is one the kernel is built
+    for (``hopper.ops.FLASH_HEAD_DIMS``) and ``x`` lies on the card; else
+    ``"einsum"``. The JAX package's serve step takes the einsum route
+    everywhere; the kernel is the port of its own Pallas kernel (ROADMAP
+    C17)."""
+    if (causal and not window and head_dim in ops.FLASH_HEAD_DIMS
+            and x.is_cuda):
+        return "flash"
+    return "einsum"
 
 
 def compute_dtype(name: str) -> torch.dtype:

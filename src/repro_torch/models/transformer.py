@@ -14,9 +14,9 @@ numpy arrays. The layers run one after another (the JAX package's
 ``scan`` over the stacked axis, or its unrolled loop, compute the same);
 there is no mesh on one card. ``loss_fn`` is the training objective;
 when gradients are wanted, ``cfg.remat`` wraps each layer in an
-activation checkpoint (its input saved, the rest recomputed in the
-backward pass), as the JAX package's ``jax.checkpoint`` does; serving
-runs without one. Micro-batches belong to ``train.train_loop``. An MoE
+activation checkpoint (its input and what ``cfg.remat_policy`` keeps
+saved, the rest recomputed in the backward pass), as the JAX package's
+``jax.checkpoint`` does; serving runs without one. Micro-batches belong to ``train.train_loop``. An MoE
 config (``cfg.moe``) runs ``layers.moe`` in place of the MLP in
 ``forward`` and ``decode_step``; ``forward`` returns the sum of its
 layers' load-balancing losses, which ``decode_step`` drops, as the JAX
@@ -25,7 +25,8 @@ package does.
 ``attn_impl`` picks the attention of ``forward``/``prefill``: ``"einsum"``
 (the default, what the JAX package's LM computes) or ``"flash"``, the
 ``flash_attention`` kernel that the JAX package's attention layer offers
-as ``attn_impl="flash"``.
+as ``attn_impl="flash"``. The serve step of ``launch.steps`` picks it
+from what it sees (``layers.serve_attn_impl``).
 """
 from __future__ import annotations
 

@@ -101,8 +101,8 @@ def _microbatch(batch: Dict[str, Any], i: int, n: int) -> Dict[str, Any]:
 
 def takes_rng(loss_fn: Callable) -> bool:
     """Whether ``loss_fn`` takes the contract's third argument, the rng.
-    A compatibility path: every loss of the port's entry points takes it;
-    only the two-argument losses of older tests do not."""
+    Every loss of the port's entry points takes it; the step builders'
+    losses that draw nothing (``launch.steps``) and older tests' do not."""
     ps = inspect.signature(loss_fn).parameters.values()
     if any(p.kind == p.VAR_POSITIONAL for p in ps):
         return True

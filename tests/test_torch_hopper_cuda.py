@@ -778,3 +778,33 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
                       device=cuda)[1:].view(q.shape)  # 2 bytes off
     with pytest.raises(ValueError):
         ops.flash_attention(off, off, off)
+
+
+@pytest.mark.cuda
+def test_built_prefill_step_takes_the_flash_route(cuda):
+    """The built prefill step of an olmo-style LM (bf16, dh = 128) on the
+    card chooses the flash route itself (``layers.serve_attn_impl``):
+    one ``flash_attention`` launch per layer, and the logits of
+    ``transformer.prefill(attn_impl="flash")``, bit for bit."""
+    import dataclasses
+    from repro_torch.common.config import LM_SHAPES, reduced
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = reduced(get_arch("olmo-1b"), d_model=512, n_heads=4, n_kv_heads=4)
+    cell = dataclasses.replace(LM_SHAPES["prefill_32k"], seq_len=256,
+                               global_batch=4)
+    params = T.init(cfg, seed=0, device="cuda")
+    r = np.random.default_rng(11)
+    tokens = torch.from_numpy(r.integers(0, cfg.vocab_size, (4, 256),
+                                         dtype=np.int32)).to(cuda)
+    assert L.serve_attn_impl(tokens, cfg.head_dim) == "flash"
+    spec = steps.build_lm(cfg, cell)
+    ops.reset_launches()
+    got = spec.fn(params, tokens)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    want = T.prefill(params, tokens, cfg, attn_impl="flash")
+    assert torch.equal(got, want)

@@ -5,8 +5,9 @@
 - ``loss_fn`` and its gradients in fp32 against ``jax.value_and_grad`` of
   JAX's ``loss_fn``: within 1e-5 of each leaf's largest |value| (fp32 sums
   in another order).
-- Remat (``cfg.remat``) on and off give the same loss and gradients, bit
-  for bit.
+- Remat (``cfg.remat``) on, under each of the policies ``nothing``,
+  ``dots_nobatch`` and ``dots``, and off give the same loss and
+  gradients, bit for bit.
 - ``train`` of fp32 olmo-1b, 5 steps from JAX's own weights on JAX's own
   batches, plain and with 2 micro-batches and int8 error feedback:
   per-step losses within 1e-5 relative; parameters within 1e-4 (a tenth
@@ -110,24 +111,27 @@ def test_loss_fn_and_grads_match_jax(arch):
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "granite-34b"])
 def test_remat_on_equals_off_bitwise(arch):
+    """Remat off, and on under each of JAX's three policies (``nothing``
+    recomputes the layer; ``dots_nobatch`` and ``dots`` keep products):
+    the same loss and gradients, bit for bit."""
     cfg, jcfg = _cfgs(arch)                     # the config's bf16
     params = T.params_from_jax(_jax_init(jcfg), cfg, "cpu")
     (toks, labels), = _batches(cfg, 1, seed=3)
     on = dataclasses.replace(cfg, remat=True)
     l0, _, g0 = _grads(cfg, params, toks, labels)
-    l1, _, g1 = _grads(on, params, toks, labels)
-    assert torch.equal(l0, l1)
-    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    for name in ("nothing", "dots_nobatch", "dots"):
+        policy = dataclasses.replace(on, remat_policy=name)
+        l1, _, g1 = _grads(policy, params, toks, labels)
+        assert torch.equal(l0, l1), name
+        assert all(torch.equal(a, b) for a, b in zip(g0, g1)), name
     with torch.no_grad():                       # serving: no checkpoint
         assert torch.equal(T.prefill(params, torch.from_numpy(toks), on),
                            T.prefill(params, torch.from_numpy(toks), cfg))
-    for name in ("dots", "dots_nobatch"):
-        with pytest.raises(NotImplementedError, match="A14"):
-            L.remat_policy(name)
-        bad = dataclasses.replace(on, remat_policy=name)
-        with pytest.raises(NotImplementedError):
-            _grads(bad, params, toks, labels)
     assert L.remat_policy("nothing") is None
+    assert callable(L.remat_policy("dots"))
+    assert callable(L.remat_policy("dots_nobatch"))
+    with pytest.raises(ValueError):
+        L.remat_policy("everything")
 
 
 def _train_both(dtype, n=5, **tkw):
