@@ -164,7 +164,25 @@ Phases, each fatal on failure (no phase's failure is caught):
    training step, peak GB, the bound from the function's operations and
    bytes (every product on the bf16 tensor cores, 3 passes a training
    step) with the code's extra work beside it as ms at peak (the fp32
-   q.k^T, remat's recompute); none of the six kernels launches;
+   q.k^T, remat's recompute); none of the six kernels launches.
+   Then the multi-card layer (``mesh_path``): a one-rank NCCL group and
+   ``launch.mesh.make_mesh((1, 1), ("data", "model"))`` (its backend and
+   NCCL's version printed); olmo-1b at full width with 2 layers through
+   the built train_4k step on the mesh (batch 2 x 4096, 2 steps) beside
+   the unsharded step from the same weights, loss lines, AdamW moments
+   and parameter changes bitwise equal (else held to 1e-6 of each leaf's
+   largest |change|); its built prefill_32k step (batch 2) with
+   ``flash_attention`` through ``local_map``, 2 launches a call, logits
+   bitwise the unsharded step's; moonshot at full width with 2 layers
+   prefilling 1 x 2048 tokens with its experts on ``"model"``, ``topk``
+   and ``flash_attention`` 2 launches each a call, routing and logits
+   equal to unsharded; ``compressed_psum`` over ``"data"`` on a (2048,
+   8192) fp32 tensor bitwise the int8 round trip, timed; the trained
+   state saved from the mesh, restored onto it and resharded onto
+   ``choose_mesh()``, every leaf bitwise on its placement; 0
+   ``constrain`` misses. One card shows a one-rank mesh only: the
+   multi-rank semantics are ``tests/test_torch_mesh.py``'s (4 gloo
+   ranks on the CPU);
 4. card against CPU: the 120 s of frames through
    ``BackgroundSubtractor(device="cpu")`` give the card's boxes on every
    frame and its final background bit for bit; on a 60 s cut, spec1-spec3
@@ -296,6 +314,16 @@ STEPS_GRANITE_LAYERS, STEPS_MOE_LAYERS = 4, 2
 STEPS_CHECK_LAYERS = 2
 STEPS_MOE_BATCH, STEPS_MOE_STEPS = 4, 3
 STEPS_VISION_BATCH, STEPS_VISION_STEPS = 8, 3
+# The multi-card layer on a one-rank NCCL mesh (``mesh_path``): olmo-1b
+# and moonshot-v1-16b-a3b at full width cut to 2 layers; olmo-1b's built
+# train_4k at batch 2 for 2 steps and prefill_32k at batch 2 (the steps
+# path's cuts), moonshot prefilling 1 x 2048 tokens; compressed_psum on a
+# (2048, 8192) fp32 tensor
+MESH_LAYERS, MESH_TRAIN_STEPS = 2, 2
+MESH_MOE_BATCH, MESH_MOE_SEQ = 1, 2048
+MESH_PSUM_SHAPE = (2048, 8192)
+# where the mesh path runs: the card, over NCCL
+MESH_DEVICE = "cuda"
 
 
 def emit(obj):
@@ -1963,8 +1991,11 @@ def recorded_routes():
 
     def record(*a):
         out = route(*a)
-        calls.append([out[0].detach().float().cpu()]
-                     + [t.cpu() for t in out[3:]] + [out[1].cpu()])
+        # a DTensor route (the mesh path) is gathered whole first
+        whole = [t.full_tensor() if hasattr(t, "full_tensor") else t
+                 for t in out]
+        calls.append([whole[0].detach().float().cpu()]
+                     + [t.cpu() for t in whole[3:]] + [whole[1].cpu()])
         return out
 
     layers.moe_route = record
@@ -3078,6 +3109,9 @@ def long_prefill_checks(ops, peaks):
                                 iters=1, warmup=0),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True), iters=5, warmup=2),
+            "library_device_ms": device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), iters=3)[0],
             "tensor_tflops": bound["tensor_gflop"] / (dev_ms or ms),
             "bound_share": bound["bound_ms"] / (dev_ms or ms)})
         del q, k, v, qt, kt, vt
@@ -3581,6 +3615,282 @@ def vision_path(ops, peaks):
     check(sum(launches.values()) == 0,
           f"the vision path launched a kernel: {launches}")
     out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the multi-card layer on a one-rank mesh
+# ---------------------------------------------------------------------------
+
+def _mesh_train(spec, params, batches, mesh=None):
+    """The built train step ``spec`` from a copy of ``params``, one step
+    per batch, each between two synchronisations (on ``mesh`` the state
+    laid out by ``spec.in_shardings`` first): (losses, the steps' s, the
+    parameters and AdamW's moments gathered whole)."""
+    from repro_torch.distributed.sharding import distribute, full_tensor
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import param_leaves
+    p = tree_map(lambda t: t.clone(), params)
+    state = opt.init(param_leaves(p))
+    if mesh is not None:
+        p, state = (distribute(x, s, mesh) for x, s in
+                    zip((p, state), spec.in_shardings[:2]))
+    losses, walls = [], []
+    for b in batches:
+        (p, state, loss), w = _synced(lambda: spec.fn(p, state, b))
+        losses.append(float(full_tensor(loss)))
+        walls.append(w)
+    final = full_tensor(param_leaves(p))
+    m, v = full_tensor(state["m"]), full_tensor(state["v"])
+    del p, state
+    return losses, walls, final, m, v
+
+
+def _largest_diff(a, b):
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b)) if a else 0.0
+
+
+def mesh_path(ops, peaks):
+    """The multi-card layer on the card: a one-rank NCCL group and
+    ``launch.mesh.make_mesh((1, 1), ("data", "model"))``, the port's
+    ``DeviceMesh`` and DTensor layout of the JAX package's (pod, data,
+    model) sharding (one card shows a one-rank mesh; ``tests/
+    test_torch_mesh.py`` holds the multi-rank semantics on 4 gloo ranks).
+    The launch counters are zeroed before and read after; on it:
+
+    - olmo-1b at full width with ``MESH_LAYERS`` layers, its built
+      train_4k step (batch cut to ``STEPS_TRAIN_BATCH`` x 4096)
+      ``MESH_TRAIN_STEPS`` steps on the mesh and unsharded from the same
+      weights and batches: the loss lines, AdamW's moments and each
+      parameter's change bitwise equal (else the largest difference is
+      reported and held to 1e-6 of each leaf's largest |change|);
+      ms/step both ways and peak GB;
+    - its built prefill_32k step (batch ``STEPS_PREFILL_BATCH``), two
+      calls each way (the first ones warm up): ``flash_attention``
+      through ``local_map``, once per layer a call, the logits bitwise
+      the unsharded step's;
+    - moonshot-v1-16b-a3b at full width with ``MESH_LAYERS`` layers, its
+      experts on ``"model"``: a built prefill of ``MESH_MOE_BATCH`` x
+      ``MESH_MOE_SEQ`` tokens, ``topk`` and ``flash_attention`` once per
+      layer a call, routing (choices, slots, capacity cut) and logits
+      equal to the unsharded call's;
+    - ``compressed_psum`` over ``"data"`` on a ``MESH_PSUM_SHAPE`` fp32
+      tensor: bitwise the int8 round trip at its own scale; timed;
+    - the trained olmo-1b state saved from the mesh, restored onto it
+      with ``param_shardings`` and ``reshard`` onto ``choose_mesh()``:
+      every leaf bitwise equal, on its stated placement;
+    - ``sharding.CONSTRAIN_MISSES`` 0.
+
+    The group is destroyed at the end, also when a check fails."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.common.config import LM_SHAPES
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train import compression, elastic
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.train_loop import param_leaves
+
+    t_path = time.perf_counter()
+    ops.reset_launches()
+    S.CONSTRAIN_MISSES = 0
+    mesh = make_mesh((1, 1), ("data", "model"), device=MESH_DEVICE)
+    out = {"backend": dist.get_backend(), "mesh": list(mesh.shape),
+           "mesh_axes": list(mesh.mesh_dim_names)}
+    if MESH_DEVICE == "cuda":
+        out["nccl_version"] = ".".join(map(str, torch.cuda.nccl.version()))
+        check(out["backend"] == "nccl", f"mesh backend {out['backend']}")
+    dev = torch.device(MESH_DEVICE)
+    try:
+        # olmo-1b's train step, on the mesh and unsharded
+        cfg = lm_config(n_layers=MESH_LAYERS)
+        cut = {"n_layers": [lm_config().n_layers, MESH_LAYERS]}
+        params = T.init(cfg, seed=0, device=dev)
+        cell, bcut = _cut(LM_SHAPES["train_4k"],
+                          global_batch=STEPS_TRAIN_BATCH)
+        B, L = cell.global_batch, cell.seq_len
+        batches = []
+        for i in range(MESH_TRAIN_STEPS):
+            toks = _lm_tokens(cfg, B, L + 1, 200 + i, dev)
+            batches.append({"tokens": toks[:, :-1].contiguous(),
+                            "labels": toks[:, 1:].contiguous()})
+        before = [t.clone() for t in param_leaves(params)]
+        torch.cuda.reset_peak_memory_stats()
+        plain = _mesh_train(steps.build_lm(cfg, cell), params, batches)
+        plain_peak = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        spec = steps.build_lm(cfg, cell, mesh)
+        sharded = _mesh_train(spec, params, batches, mesh)
+        mesh_peak = torch.cuda.max_memory_allocated() / 1e9
+        change = lambda fin: [a.float() - b.float()
+                              for a, b in zip(fin, before)]
+        ch_p, ch_m = change(plain[2]), change(sharded[2])
+        bitwise = (plain[0] == sharded[0] and all(
+            torch.equal(a, b) for a, b in
+            zip(plain[2] + plain[3] + plain[4],
+                sharded[2] + sharded[3] + sharded[4])))
+        worst = max(float((a - b).abs().max()
+                          / max(float(b.abs().max()), 1e-30))
+                    for a, b in zip(ch_m, ch_p))
+        check(bitwise or (worst <= 1e-6 and _largest_diff(
+            plain[3] + plain[4], sharded[3] + sharded[4]) <= 1e-6 * max(
+                float(x.abs().max()) for x in plain[3] + plain[4])),
+              f"olmo-1b train_4k on the mesh against unsharded: losses "
+              f"{sharded[0]} / {plain[0]}, worst change {worst}")
+        out["train"] = {
+            "cell": spec.name, "cut": dict(cut, **bcut),
+            "in_shardings_example": {
+                "tok_embed": list(spec.in_shardings[0]["tok_embed"]),
+                "layers/attn/wq": list(
+                    spec.in_shardings[0]["layers"]["attn"]["wq"])},
+            "batch": B, "seq": L, "steps": MESH_TRAIN_STEPS,
+            "losses_mesh": sharded[0], "losses_unsharded": plain[0],
+            "bitwise_equal": bitwise,
+            "max_change_diff_over_largest_change": worst,
+            "max_moment_diff": _largest_diff(plain[3] + plain[4],
+                                             sharded[3] + sharded[4]),
+            "ms_per_step_mesh": [1e3 * w for w in sharded[1]],
+            "ms_per_step_unsharded": [1e3 * w for w in plain[1]],
+            "peak_memory_gb_mesh": mesh_peak,
+            "peak_memory_gb_unsharded": plain_peak}
+        trained = (sharded[2], sharded[3], sharded[4])
+        del plain, sharded, ch_p, ch_m, before, batches
+        torch.cuda.empty_cache()
+
+        # olmo-1b's built prefill: flash_attention under DTensor
+        cell, pcut = _cut(LM_SHAPES["prefill_32k"],
+                          global_batch=STEPS_PREFILL_BATCH)
+        tokens = _lm_tokens(cfg, cell.global_batch, cell.seq_len, 210, dev)
+        plain_fn = steps.build_lm(cfg, cell).fn
+        spec = steps.build_lm(cfg, cell, mesh)
+        dparams = S.distribute(params, spec.in_shardings[0], mesh)
+        plain_s, mesh_s = [], []
+        for _ in range(2):          # the first calls include the warm-up
+            want, w = _synced(lambda: plain_fn(params, tokens))
+            plain_s.append(w)
+            before = dict(ops.LAUNCHES)
+            got, w = _synced(lambda: spec.fn(dparams, tokens))
+            mesh_s.append(w)
+            n = _launches_since(ops, before)
+        got = got.full_tensor()
+        check(n == {**{k: 0 for k in n}, "flash_attention": MESH_LAYERS},
+              f"{spec.name} on the mesh launched {n}")
+        check(torch.equal(got, want), f"{spec.name} on the mesh: logits "
+              f"differ from unsharded by {_largest_diff([got], [want])}")
+        out["prefill"] = {"cell": spec.name, "cut": dict(cut, **pcut),
+                          "launches_per_call": n, "bitwise_equal": True,
+                          "s_mesh_calls": mesh_s,
+                          "s_unsharded_calls": plain_s}
+        del got, want, tokens, dparams
+        torch.cuda.empty_cache()
+
+        # moonshot: the router's topk and flash_attention under DTensor
+        arch = "moonshot-v1-16b-a3b"
+        mcfg = lm_config(arch, n_layers=MESH_LAYERS)
+        mparams = T.init(mcfg, seed=0, device=dev)
+        cell, mcut = _cut(LM_SHAPES["prefill_32k"],
+                          global_batch=MESH_MOE_BATCH, seq_len=MESH_MOE_SEQ)
+        tokens = _lm_tokens(mcfg, cell.global_batch, cell.seq_len, 220, dev)
+        plain_fn = steps.build_lm(mcfg, cell).fn
+        spec = steps.build_lm(mcfg, cell, mesh)
+        check(list(spec.in_shardings[0]["layers"]["moe"]["wi"])[1]
+              == "model", "moonshot's experts are not on 'model'")
+        dparams = S.distribute(mparams, spec.in_shardings[0], mesh)
+        plain_s, mesh_s = [], []
+        for _ in range(2):          # the first calls include the warm-up
+            with recorded_routes() as r_plain:
+                want, w = _synced(lambda: plain_fn(mparams, tokens))
+            plain_s.append(w)
+            before = dict(ops.LAUNCHES)
+            with recorded_routes() as r_mesh:
+                got, w = _synced(lambda: spec.fn(dparams, tokens))
+            mesh_s.append(w)
+            n = _launches_since(ops, before)
+        got = got.full_tensor()
+        check(n == {**{k: 0 for k in n}, "flash_attention": MESH_LAYERS,
+                    "topk": MESH_LAYERS},
+              f"{spec.name} on the mesh launched {n}")
+        same_routes = len(r_plain) == len(r_mesh) == MESH_LAYERS and all(
+            torch.equal(a, b) for x, y in zip(r_plain, r_mesh)
+            for a, b in zip(x[1:], y[1:]))
+        check(same_routes, f"{spec.name}: the mesh routes otherwise")
+        check(torch.equal(got, want), f"{spec.name} on the mesh: logits "
+              f"differ from unsharded by {_largest_diff([got], [want])}")
+        out["moe_prefill"] = {
+            "cell": spec.name,
+            "cut": dict(mcut, n_layers=[lm_config(arch).n_layers,
+                                        MESH_LAYERS]),
+            "experts_spec": list(spec.in_shardings[0]["layers"]["moe"]
+                                 ["wi"]),
+            "launches_per_call": n, "routes_equal": True,
+            "logits_bitwise_equal": True, "s_mesh_calls": mesh_s,
+            "s_unsharded_calls": plain_s}
+        del mparams, dparams, got, want, tokens, r_plain, r_mesh
+        torch.cuda.empty_cache()
+
+        # compressed_psum over "data"
+        g = torch.Generator(device=dev).manual_seed(230)
+        x = torch.randn(MESH_PSUM_SHAPE, generator=g, device=dev)
+        got = compression.compressed_psum(x, mesh, "data")
+        q, scale = compression._quant_int8(x)
+        check(torch.equal(got, q.float() * scale),
+              "compressed_psum on one rank is not the int8 round trip")
+        out["compressed_psum"] = {
+            "shape": list(MESH_PSUM_SHAPE), "axis": "data",
+            "bitwise_round_trip": True,
+            "ms": time_ms(lambda: compression.compressed_psum(
+                x, mesh, "data"), iters=20, warmup=3)}
+        del x, got, q
+
+        # save from the mesh, restore onto it, reshard onto choose_mesh()
+        specs = S.param_shardings(params, mesh)
+        p_mesh = S.distribute(params, specs, mesh)
+        tree = {"params": p_mesh, "m": trained[1], "v": trained[2]}
+        with tempfile.TemporaryDirectory() as d:
+            ckpt = CheckpointManager(d, async_save=False)
+            (_, save_s) = _synced(lambda: ckpt.save(1, tree))
+            ckpt.wait()
+            (_, back, _), load_s = _synced(lambda: ckpt.restore(
+                device=dev, shardings={"params": specs, "m": None,
+                                       "v": None}, mesh=mesh))
+        ok = all(torch.equal(a.full_tensor(), b) and tuple(a.placements)
+                 == S.to_placements(s, mesh)
+                 for (_, a), (_, b), (_, s) in zip(
+                     S.tree_paths(back["params"]), S.tree_paths(params),
+                     S.tree_paths(specs)))
+        ok &= all(torch.equal(a, b) for a, b in
+                  zip(back["m"] + back["v"], trained[1] + trained[2]))
+        check(ok, "the restored state differs from the saved one")
+        new_mesh = elastic.choose_mesh()
+        moved = elastic.reshard(back["params"], new_mesh)
+        new_specs = S.param_shardings(params, new_mesh)
+        ok = all(torch.equal(a.full_tensor(), b) and tuple(a.placements)
+                 == S.to_placements(s, new_mesh)
+                 for (_, a), (_, b), (_, s) in zip(
+                     S.tree_paths(moved), S.tree_paths(params),
+                     S.tree_paths(new_specs)))
+        check(ok, "reshard onto choose_mesh() changed a leaf")
+        out["checkpoint"] = {"leaves": len(S.full_tensor(
+            param_leaves(params))) * 3, "save_s": save_s, "load_s": load_s,
+            "restored_bitwise": True,
+            "reshard_mesh": list(new_mesh.shape),
+            "reshard_axes": list(new_mesh.mesh_dim_names),
+            "resharded_bitwise": True}
+        del params, p_mesh, tree, back, moved, trained
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    launches = dict(ops.LAUNCHES)
+    check(launches["flash_attention"] > 0 and launches["topk"] > 0,
+          f"the mesh path's kernels never launched: {launches}")
+    check(S.CONSTRAIN_MISSES == 0,
+          f"{S.CONSTRAIN_MISSES} constrain calls missed the mesh")
+    out.update(launches=launches, constrain_misses=S.CONSTRAIN_MISSES,
+               path_s=time.perf_counter() - t_path)
     return out
 
 
@@ -4714,6 +5024,11 @@ def main():
           "path_s": time.perf_counter() - t_vision, "elapsed_s": elapsed()})
     for entry in (ca, pm, dq, tk, mg, fa):
         entry["launches_vision_path"] = vision["launches"][entry["name"]]
+    meshed = mesh_path(ops, peaks)
+    emit({"phase": "mesh_path", "gpu": smi, **meshed,
+          "elapsed_s": elapsed()})
+    fa["launches_mesh_path"] = meshed["launches"]["flash_attention"]
+    tk["launches_mesh_path"] = meshed["launches"]["topk"]
 
     # -- phase 4: card against CPU --------------------------------------------
     emit({"phase": "card_vs_cpu", **card_vs_cpu(serve_args),

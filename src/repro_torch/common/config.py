@@ -44,9 +44,12 @@ class LMConfig:
     ``train_microbatches`` and ``grad_reduce_dtype`` in the train step,
     ``prefill_batch_chunks`` in the prefill step, whose long-prefill
     recipe also rewrites ``act_sharding`` and ``attn_q_chunk``
-    (``attn_q_chunk`` sets the einsum route's query blocks; one card has
-    no residual layout for ``act_sharding`` to choose). Only the mesh
-    layout (``parallelism``, ``scan_layers``) is ignored on one card; the
+    (``attn_q_chunk`` sets the einsum route's query blocks;
+    ``act_sharding`` picks the residual stream's layout on a mesh,
+    ``transformer._residual_kind``). ``parallelism`` (``"ddp_zero1"``:
+    replicated parameters, ZeRO-1 moments) sets the step builders'
+    shardings on a mesh; ``scan_layers`` only names JAX's loop over the
+    stacked layers (the port runs them one after another). The
     train loop of ``launch.train`` takes its micro-batches from
     ``TrainConfig``, as the JAX package's does. The MoE fields
     (``moe=True``) select ``models.layers.moe`` in place of the dense MLP:
@@ -127,9 +130,10 @@ class LMConfig:
 class ViTConfig:
     """A ViT or DeiT image classifier, field for field the JAX package's.
     ``serve_pure_dp`` is read by the serve step (``launch.steps``), which
-    pads the batch to a multiple of the card count: on one card, no pad.
-    ``scan_layers`` only lays the model out over a TPU mesh; one card
-    ignores it."""
+    on a mesh pads the batch to a multiple of its device count and
+    spreads it over every axis; without a mesh, no pad. ``scan_layers``
+    only names JAX's loop over the stacked layers: the port runs them
+    one after another."""
 
     name: str
     img_res: int

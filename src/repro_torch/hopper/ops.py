@@ -6,6 +6,15 @@ stream without synchronising. A CUDA tensor launches the kernel or raises;
 only a CPU tensor takes the plain version in ``hopper.ref``. ``LAUNCHES``
 counts kernel launches per wrapper, so a run can show that its path went
 through the kernels.
+
+``flash_attention`` and ``topk`` also take DTensors (a model run on a
+``DeviceMesh``): the inputs are first redistributed to the placement
+where the op is local to each rank (flash: batch over the data axes and
+heads over ``"model"``, S and dh whole; topk: rows sharded as they
+come, columns whole), then the wrapper runs on each rank's local tensors
+through ``torch.distributed.tensor.experimental.local_map``: the kernel
+on the card, the plain version only for CPU shards. A DTensor never
+reaches ``data_ptr``.
 """
 from __future__ import annotations
 
@@ -15,6 +24,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import (heads_placements, is_dtensor,
+                                              on_blocks, rows_placements)
 from repro_torch.hopper import build, ref
 
 LAUNCHES = {"centroid_assign": 0, "pixel_match": 0, "dequant_topk": 0,
@@ -293,7 +304,11 @@ def topk(x: torch.Tensor, k: int):
     Each row's k largest values with ties to the LOWEST column; the values
     are the input bits. ``k > C`` (or ``k < 1``) raises: there are only C
     columns to rank. ``B == 0`` gives empty outputs without a launch.
-    Inputs must be 2-D float32 and hold no NaN."""
+    Inputs must be 2-D float32 and hold no NaN. A DTensor is ranked on
+    each rank's block of rows (see the module's docstring)."""
+    if is_dtensor(x):
+        return on_blocks(lambda xl: topk(xl, k), rows_placements(x), x,
+                         n_out=2)
     if x.dim() != 2:
         raise ValueError(f"x must be (B, C), got {tuple(x.shape)}")
     B, C = x.shape
@@ -413,7 +428,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     wrapper does; the plain version keeps JAX's layout. The kernel takes
     contiguous float32 or bfloat16 tensors of one dtype with dh in
     ``FLASH_HEAD_DIMS``; bfloat16 ones must start on 16 bytes (it copies
-    rows in 16-byte pieces)."""
+    rows in 16-byte pieces). DTensors run on each rank's (batch, heads)
+    block (see the module's docstring)."""
+    if is_dtensor(q):
+        return on_blocks(
+            lambda ql, kl, vl: flash_attention(ql, kl, vl, causal=causal),
+            heads_placements(q), q, k, v)
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must all be (B, S, H, dh), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "

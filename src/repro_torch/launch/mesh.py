@@ -1,24 +1,108 @@
-"""The ingest mesh: which devices sharded multi-stream ingest runs on.
+"""Mesh construction: the (pod, data, model) meshes of LM training and
+serving, and the ingest mesh of sharded multi-stream ingest.
 
-The JAX package builds a 1-D ``("data",)`` ``jax.sharding.Mesh`` over its
-devices (``repro.launch.mesh.make_ingest_mesh``). The port keeps the
-name and the shape: an ``IngestMesh`` is a list of ``torch.device``s
-along one ``"data"`` axis, and each of its devices owns a block of
-stream slots (``distributed.sharding``). Nothing here touches a device
-when the module is imported; ``make_ingest_mesh`` checks the device count
-only when it is called.
+Functions, not module-level constants: importing this module touches no
+device and no process group (the JAX package's contract,
+``tests/test_launch.py``).
 
-The JAX package's ``make_production_mesh`` (fixed 256/512-chip TPU
-shapes, for LM training) has no counterpart yet.
+- ``make_mesh(shape, axes)`` is a ``torch.distributed`` ``DeviceMesh``
+  over the process group's ranks: NCCL on the card, gloo with
+  ``device="cpu"``. A mesh of one device starts its own one-rank group
+  when none exists; a larger one needs the group started across
+  ``prod(shape)`` processes (``init_process_group`` with an address, a
+  world size and a rank).
+- ``make_production_mesh`` is JAX's 256-device ``(16, 16)`` and
+  512-device ``(2, 16, 16)`` mesh; ``make_abstract_mesh`` gives the same
+  names and sizes without devices, which is all the sharding specs need
+  (``distributed.sharding``).
+- ``make_ingest_mesh`` is the 1-D ``("data",)`` ingest mesh. The JAX
+  package builds a ``jax.sharding.Mesh`` over its devices; the port keeps
+  the name and the shape: an ``IngestMesh`` is a list of
+  ``torch.device``s along one ``"data"`` axis, each owning a block of
+  stream slots.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from repro_torch.common.device import resolve_device
+from repro_torch.distributed.sharding import AbstractMesh
+
+_BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+
+
+def make_abstract_mesh(shape: Sequence[int],
+                       axes: Sequence[str]) -> AbstractMesh:
+    """The mesh's axis names and sizes, no devices: what specs need."""
+    return AbstractMesh(tuple(int(s) for s in shape), tuple(axes))
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              device: str = "cuda"):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over the process
+    group's ranks in order (rank r at the row-major position r).
+
+    ``device="cuda"`` without a card raises; there is no CPU fallback
+    (pass ``device="cpu"`` for a gloo mesh). With no process group and a
+    one-device shape, a one-rank group is started on a local store (NCCL
+    on the card, gloo on the CPU); the caller ends it with
+    ``torch.distributed.destroy_process_group()``. A shape whose size is
+    not the world size raises a ``ValueError`` that says what to do."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"{len(shape)} sizes for axes {axes}")
+    dev = resolve_device(device)
+    if dev.type not in _BACKEND:
+        raise ValueError(f"unsupported device {device!r}: expected 'cuda' "
+                         f"or 'cpu'")
+    n = math.prod(shape)
+    if not dist.is_initialized():
+        if n != 1:
+            raise ValueError(
+                f"make_mesh({shape}) needs {n} processes, and no process "
+                f"group exists: start one in each of {n} processes "
+                f"(torch.distributed.init_process_group(backend, "
+                f"init_method='tcp://localhost:<port>', world_size={n}, "
+                f"rank=r)), then call make_mesh")
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(_BACKEND[dev.type], store=dist.HashStore(),
+                                rank=0, world_size=1)
+    world = dist.get_world_size()
+    if n != world:
+        raise ValueError(
+            f"make_mesh({shape}) holds {n} devices but the process group "
+            f"has {world} ranks; pass a shape whose product is {world}, or "
+            f"start the group with world_size={n}")
+    if dev.type == "cuda":
+        avail = torch.cuda.device_count()
+        torch.cuda.set_device(dist.get_rank() % avail)
+    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """Single pod: (data=16, model=16) = 256 devices. Multi-pod: (pod=2,
+    data=16, model=16) = 512 devices, over CUDA cards. Raises with the
+    visible card count where there are fewer (one card shows a one-rank
+    mesh only)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if avail < n:
+        raise ValueError(
+            f"make_production_mesh(multi_pod={multi_pod}) needs {n} "
+            f"devices, but {avail} CUDA device(s) are visible; use "
+            f"make_abstract_mesh({shape}, {axes}) for its specs, or "
+            f"make_mesh with a shape of {max(avail, 1)} devices")
+    return make_mesh(shape, axes)
 
 
 @dataclass(frozen=True)

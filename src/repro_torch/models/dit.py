@@ -1,5 +1,6 @@
 """DiT: latent diffusion transformer (adaLN-Zero conditioning)
-[arXiv:2212.09748], a port of ``repro.models.dit`` for one card.
+[arXiv:2212.09748], a port of ``repro.models.dit``; ``mesh=`` constrains
+the residual stream as the JAX package does (``distributed.sharding``).
 
 Operates on VAE latents (img_res/8, 4 channels); the VAE is a stub, as in
 the JAX package: the data gives latents directly. Predicts (noise, sigma)
@@ -33,15 +34,16 @@ import torch.nn.functional as F
 from repro_torch.common import prng
 from repro_torch.common.config import DiTConfig
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import constrain, replicate_like
 from repro_torch.models import layers as L
 
 
 def timestep_embedding(t: torch.Tensor, dim: int = 256,
                        max_period: float = 10000.0) -> torch.Tensor:
     half = dim // 2
-    freqs = torch.exp(-math.log(max_period)
-                      * torch.arange(half, dtype=torch.float32,
-                                     device=t.device) / half)
+    freqs = replicate_like(torch.exp(
+        -math.log(max_period) * torch.arange(
+            half, dtype=torch.float32, device=t.device) / half), t)
     args = t.float()[:, None] * freqs[None]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
@@ -103,27 +105,28 @@ def _modulate(x, shift, scale):
 
 
 def _layer(cfg: DiTConfig, p: dict, x: torch.Tensor,
-           c_act: torch.Tensor) -> torch.Tensor:
+           c_act: torch.Tensor, mesh=None) -> torch.Tensor:
     mod = c_act @ p["adaln"]["w"] + p["adaln"]["b"]
     s1, sc1, g1, s2, sc2, g2 = mod.chunk(6, dim=-1)
     h = _modulate(L.layernorm({}, x), s1, sc1)
     h = L.multihead_attention(p["attn"], h, n_heads=cfg.n_heads,
                               n_kv_heads=cfg.n_heads, causal=False,
-                              use_rope=False)
+                              use_rope=False, mesh=mesh)
     x = x + g1[:, None, :] * h
     h = _modulate(L.layernorm({}, x), s2, sc2)
-    h = L.mlp(p["mlp"], h, "gelu")
-    return x + g2[:, None, :] * h
+    h = L.mlp(p["mlp"], h, "gelu", mesh=mesh)
+    return constrain(x + g2[:, None, :] * h, mesh, "hidden")
 
 
 def forward(params: dict, latents: torch.Tensor, t: torch.Tensor,
-            labels: torch.Tensor, cfg: DiTConfig
+            labels: torch.Tensor, cfg: DiTConfig, mesh=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """latents: (B, h, w, C); t: (B,) int; labels: (B,) int.
 
     Returns (noise_pred, sigma_pred), each (B, h, w, C) fp32. A latent
     grid other than the config's resizes the pos table bilinearly (the
-    higher-res cells)."""
+    higher-res cells). Under a ``mesh`` the residual stream is
+    constrained to ``"hidden"``, as in the JAX package."""
     dt = L.compute_dtype(cfg.dtype)
     B, h, w, C = latents.shape
     x = L.patch_embed(params["patch"], latents.to(dt), cfg.patch)
@@ -133,14 +136,14 @@ def forward(params: dict, latents: torch.Tensor, t: torch.Tensor,
         g_old = int(math.sqrt(pos.shape[1]))
         pos = L.resize_grid(pos.reshape(1, g_old, g_old, -1),
                           int(math.sqrt(N))).reshape(1, N, -1).to(pos.dtype)
-    x = x + pos
+    x = constrain(x + pos, mesh, "hidden")
 
     te = params["t_embed"]
     c = F.silu(timestep_embedding(t).to(dt) @ te["w1"] + te["b1"]) \
         @ te["w2"] + te["b2"]
     c = c + params["label_embed"][labels.long()].to(dt)
     c_act = F.silu(c)
-    x = L.run_layers(cfg, _layer, params, x, c_act)
+    x = L.run_layers(cfg, _layer, params, x, c_act, mesh)
 
     fin = params["final"]
     shift, scale = (c_act @ fin["adaln"]["w"] + fin["adaln"]["b"]).chunk(
@@ -217,38 +220,45 @@ def alpha_bars(n_steps: int = N_TRAIN_STEPS,
 
 
 def loss_fn(params: dict, latents: torch.Tensor, labels: torch.Tensor,
-            rng: torch.Tensor, cfg: DiTConfig):
+            rng: torch.Tensor, cfg: DiTConfig, mesh=None):
     """Noise-prediction MSE at uniformly drawn timesteps: ``(loss,
     {"mse"})``. ``rng`` is a ``common.prng`` key; the timesteps and the
-    noise are JAX's draws from it, made on the latents' device."""
+    noise are JAX's draws from it, made on the latents' device (whole on
+    every rank, under a mesh)."""
     B = latents.shape[0]
-    k1, k2 = prng.split(rng.to(latents.device))
+    dev = latents.device
+    k1, k2 = prng.split(rng.to(dev))
     t = prng.randint(k1, (B,), 0, N_TRAIN_STEPS)
     eps = prng.normal(k2, latents.shape)
-    ab = alpha_bars(device=latents.device)[t.long()][:, None, None, None]
+    ab = alpha_bars(device=dev)[t.long()][:, None, None, None]
+    t, eps, ab = (replicate_like(v, latents) for v in (t, eps, ab))
     noisy = torch.sqrt(ab) * latents + torch.sqrt(1 - ab) * eps
-    pred, _ = forward(params, noisy, t, labels, cfg)
+    pred, _ = forward(params, noisy, t, labels, cfg, mesh=mesh)
     loss = torch.mean(torch.square(pred - eps))
     return loss, {"mse": loss.detach()}
 
 
 @torch.no_grad()
 def sample(params: dict, rng: torch.Tensor, labels: torch.Tensor,
-           cfg: DiTConfig, img_res: int, n_steps: int) -> torch.Tensor:
+           cfg: DiTConfig, img_res: int, n_steps: int,
+           mesh=None) -> torch.Tensor:
     """DDIM sampler: ``n_steps`` forwards from noise drawn under ``rng``
     (a ``common.prng`` key), on the labels' device. Returns the latents
     (B, img_res/8, img_res/8, C) fp32."""
     dev = labels.device
     B = labels.shape[0]
     res = img_res // cfg.vae_factor
-    x = prng.normal(rng.to(dev), (B, res, res, cfg.latent_channels))
-    ab = alpha_bars(device=dev)
+    x = replicate_like(prng.normal(rng.to(dev),
+                                   (B, res, res, cfg.latent_channels)),
+                       labels)
+    ab = replicate_like(alpha_bars(device=dev), labels)
     ts = ddim_timesteps(n_steps)
-    one = torch.ones((), dtype=torch.float32, device=dev)
+    one = replicate_like(torch.ones((), dtype=torch.float32, device=dev),
+                         labels)
     for i, t_cur in enumerate(ts):
         t_prev = ts[i + 1] if i + 1 < n_steps else -1
-        eps, _ = forward(params, x, torch.full((B,), t_cur, device=dev),
-                         labels, cfg)
+        t = replicate_like(torch.full((B,), t_cur, device=dev), labels)
+        eps, _ = forward(params, x, t, labels, cfg, mesh=mesh)
         a_cur = ab[t_cur]
         a_prev = ab[t_prev] if t_prev >= 0 else one
         x0 = (x - torch.sqrt(1 - a_cur) * eps) / torch.sqrt(a_cur)

@@ -1,6 +1,6 @@
 """EfficientNet [arXiv:1905.11946]: MBConv + SE, compound width/depth
 scaling; b7 = (width 2.0, depth 3.1, native 600px). A port of
-``repro.models.efficientnet`` for one card.
+``repro.models.efficientnet``.
 
 Batch-norm statistics are threaded functionally as a separate ``state``
 tree, as in the JAX package: ``init`` returns ``(params, state)`` and
@@ -14,6 +14,9 @@ Params layout: stem/{conv/w, bn/{scale, bias}}, blocks (a list; each
 expand/{conv, bn} when it widens, dwconv/w (k, k, 1, c_mid), bn_dw,
 se/{w1, b1, w2, b2}, project/{conv, bn}), head/{conv, bn}, fc/{w, b}.
 The batch-norm leaves are fp32, every other leaf in the config's dtype.
+``mesh`` is the JAX package's argument, and as there it sets no
+constraint: on a mesh the parameters and images are DTensors and the
+layout follows them.
 """
 from __future__ import annotations
 
@@ -128,7 +131,7 @@ def params_to_jax(params: dict, state: dict):
 
 
 def forward(params: dict, state: dict, images: torch.Tensor,
-            cfg: EffNetConfig, train: bool = False,
+            cfg: EffNetConfig, train: bool = False, mesh=None,
             features_only: bool = False):
     """images (B, H, W, 3) -> (logits fp32, new_state); with
     ``features_only``, the pooled head features (fp32) in place of the
@@ -175,10 +178,11 @@ def forward(params: dict, state: dict, images: torch.Tensor,
 
 
 def loss_fn(params: dict, state: dict, images: torch.Tensor,
-            labels: torch.Tensor, cfg: EffNetConfig):
+            labels: torch.Tensor, cfg: EffNetConfig, mesh=None):
     """Cross-entropy in training mode: ``(loss, ({"nll", "acc"},
     new_state))``."""
-    logits, new_state = forward(params, state, images, cfg, train=True)
+    logits, new_state = forward(params, state, images, cfg, train=True,
+                                mesh=mesh)
     loss, metrics = L.classification_loss(logits, labels)
     return loss, (metrics, new_state)
 

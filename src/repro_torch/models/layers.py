@@ -9,8 +9,12 @@ public function: parameters are dictionaries of tensors shaped as the JAX
 tree (dense weights (d_in, d_out), applied as ``x @ w``; conv weights
 HWIO), activations (B, S, D), heads (B, S, H, dh), images NHWC, a batch
 norm's state ``{"mean", "var"}``. ``*_init`` draws through ``common.prng``
-exactly as the JAX package draws through ``jax.random``. Left out: the
-mesh constraints (one card). The remat policies are JAX's three
+exactly as the JAX package draws through ``jax.random``. ``mesh=`` (a
+``DeviceMesh``; None on one card) puts ``distributed.sharding.constrain``
+at the JAX package's points: activations are DTensors there, and every
+tensor a layer makes itself (positions, rope tables, masks, the MoE's
+one-hots) joins x's mesh replicated (``sharding.replicate_like``). The
+remat policies are JAX's three
 (``remat_policy``): ``"nothing"`` a plain checkpoint per layer, ``"dots"``
 and ``"dots_nobatch"`` torch's selective checkpointing, which keeps the
 products that JAX's policy saves. ``serve_attn_impl`` is the serve
@@ -37,6 +41,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.common import prng
+from repro_torch.distributed.sharding import (by_rows, constrain,
+                                              heads_placements, is_dtensor,
+                                              on_blocks, replicate_like,
+                                              splits, write_slot)
 from repro_torch.hopper import ops
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -132,7 +140,7 @@ def serve_attn_impl(x: torch.Tensor, head_dim: int, causal: bool = True,
     for (``hopper.ops.FLASH_HEAD_DIMS``) and ``x`` lies on the card; else
     ``"einsum"``. The JAX package's serve step takes the einsum route
     everywhere; the kernel is the port of its own Pallas kernel (ROADMAP
-    C17)."""
+    C17). A DTensor's ``is_cuda`` is its local tensor's."""
     if (causal and not window and head_dim in ops.FLASH_HEAD_DIMS
             and x.is_cuda):
         return "flash"
@@ -208,7 +216,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0) -> torch.Tensor:
     """x: (..., S, H, dh); positions: broadcastable to (..., S)."""
     dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)                 # (dh/2,)
+    freqs = replicate_like(rope_freqs(dh, theta, x.device), x)
     angles = positions[..., None].float() * freqs           # (..., S, dh/2)
     angles = angles[..., None, :]                           # (..., S, 1, dh/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
@@ -237,7 +245,8 @@ def multihead_attention(params: dict, x: torch.Tensor, *, n_heads: int,
                         n_kv_heads: int, causal: bool, window: int = 0,
                         positions: Optional[torch.Tensor] = None,
                         theta: float = 10000.0, use_rope: bool = True,
-                        attn_impl: str = "einsum", q_chunk: int = 4096,
+                        mesh=None, attn_impl: str = "einsum",
+                        out_kind: str = "hidden", q_chunk: int = 4096,
                         scores_dtype: torch.dtype = torch.float32):
     """Self attention over x: (B, S, D). Returns (B, S, D).
 
@@ -245,7 +254,12 @@ def multihead_attention(params: dict, x: torch.Tensor, *, n_heads: int,
     kernel on K/V repeated to every head; otherwise the einsum route:
     fp32 (or ``scores_dtype``) scores, causal keys past a query block
     sliced off rather than masked, and query blocks of ``q_chunk`` rows
-    when S is a larger multiple of it."""
+    when S is a larger multiple of it. Under a ``mesh`` the einsum route
+    constrains q/k/v to ``"heads"``, attends on each rank's block of
+    batch and heads (``sharding.on_blocks``, as the flash route's
+    kernel does), and constrains the heads' output to ``"ffn"`` and the
+    result to ``out_kind``; the flash route constrains nothing, as in
+    JAX."""
     B, S, D = x.shape
     hd = D // n_heads
     g = n_heads // n_kv_heads
@@ -254,7 +268,8 @@ def multihead_attention(params: dict, x: torch.Tensor, *, n_heads: int,
     v = (x @ params["wv"]).reshape(B, S, n_kv_heads, hd)
     if use_rope:
         if positions is None:
-            positions = torch.arange(S, device=x.device)[None, :]
+            positions = replicate_like(
+                torch.arange(S, device=x.device)[None, :], x)
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
     kf = torch.repeat_interleave(k, g, dim=2) if g > 1 else k
@@ -266,7 +281,29 @@ def multihead_attention(params: dict, x: torch.Tensor, *, n_heads: int,
     if attn_impl not in ("einsum", "flash"):
         raise ValueError(f"attn_impl must be 'einsum' or 'flash', got "
                          f"{attn_impl!r}")
+    q = constrain(q, mesh, "heads")
+    kf = constrain(kf, mesh, "heads")
+    vf = constrain(vf, mesh, "heads")
 
+    def attend(ql, kl, vl):
+        return _attend(ql, kl, vl, causal=causal, window=window,
+                       q_chunk=q_chunk, scores_dtype=scores_dtype,
+                       out_dtype=x.dtype)
+    # on a mesh each rank attends its own (batch, heads) block: the
+    # scores and weights are JAX's "scores" layout by construction
+    out = (on_blocks(attend, heads_placements(q), q, kf, vf)
+           if is_dtensor(q) else attend(q, kf, vf))
+    out = constrain(out.reshape(B, S, n_heads * hd), mesh, "ffn")
+    return constrain(out @ params["wo"], mesh, out_kind)
+
+
+def _attend(q: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, *,
+            causal: bool, window: int, q_chunk: int,
+            scores_dtype: torch.dtype, out_dtype: torch.dtype):
+    """The einsum route's softmax(q . k^T) . v on (B, S, H, dh) tensors,
+    in query blocks of ``q_chunk`` rows when S is a larger multiple of
+    it; each causal block attends only the keys up to its last row."""
+    S, hd, dev = q.shape[1], q.shape[-1], q.device
     neg = -1e30 if scores_dtype == torch.float32 else -3e38
 
     def attend(q_blk, q0, Sq, k_end=None):
@@ -281,20 +318,19 @@ def multihead_attention(params: dict, x: torch.Tensor, *, n_heads: int,
         if causal or window:
             if causal and Sk == q0 + Sq and not window:
                 diag = torch.ones((Sq, Sq), dtype=torch.bool,
-                                  device=x.device).tril()
+                                  device=dev).tril()
                 s = torch.cat([s[..., :q0],
                                s[..., q0:].masked_fill(~diag, neg)], dim=-1)
             else:
-                qpos = q0 + torch.arange(Sq, device=x.device)[:, None]
-                kpos = torch.arange(Sk, device=x.device)[None, :]
-                mask = torch.ones((Sq, Sk), dtype=torch.bool,
-                                  device=x.device)
+                qpos = q0 + torch.arange(Sq, device=dev)[:, None]
+                kpos = torch.arange(Sk, device=dev)[None, :]
+                mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
                 if causal:
                     mask &= kpos <= qpos
                 if window:
                     mask &= kpos > qpos - window
                 s = s.masked_fill(~mask, neg)
-        w = torch.softmax(s, dim=-1).to(x.dtype)
+        w = torch.softmax(s, dim=-1).to(out_dtype)
         return torch.einsum("bhqk,bkhd->bqhd", w, vv.to(w.dtype))
 
     if q_chunk and S > q_chunk and S % q_chunk == 0:
@@ -303,22 +339,25 @@ def multihead_attention(params: dict, x: torch.Tensor, *, n_heads: int,
             k_end = q0 + q_chunk if (causal and not window) else None
             outs.append(attend(q[:, q0:q0 + q_chunk], q0, q_chunk,
                                k_end=k_end))
-        out = torch.cat(outs, dim=1)
-    else:
-        out = attend(q, 0, S)
-    return out.reshape(B, S, n_heads * hd) @ params["wo"]
+        return torch.cat(outs, dim=1)
+    return attend(q, 0, S)
 
 
 def decode_attention(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, cache_len: int, *, n_heads: int,
                      n_kv_heads: int, theta: float = 10000.0,
-                     use_rope: bool = True, window: int = 0):
+                     use_rope: bool = True, window: int = 0, mesh=None):
     """One-token decode. x: (B, 1, D); cache_{k,v}: (B, S_max, KV, dh).
 
     Returns (out, cache_k, cache_v). The caches are updated IN PLACE at
     ``cache_len`` (the JAX package returns new arrays; writing one slot
-    saves copying the cache every token) and returned. Attention over the
-    cache is linear in its length; slots past ``cache_len`` are masked."""
+    saves copying the cache every token) and returned; a DTensor cache
+    is written per rank, also where its sequence is sharded
+    (``sharding.write_slot``), and attended per rank where it is not.
+    Attention over the cache is linear in its length; slots past
+    ``cache_len`` are masked. ``mesh`` is the JAX package's argument,
+    and as there decode sets no constraint: the layout follows the
+    cache's and the weights'."""
     B, _, D = x.shape
     hd = D // n_heads
     g = n_heads // n_kv_heads
@@ -328,22 +367,32 @@ def decode_attention(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
     k = (x @ params["wk"]).reshape(B, 1, n_kv_heads, hd)
     v = (x @ params["wv"]).reshape(B, 1, n_kv_heads, hd)
     if use_rope:
-        pos = torch.full((B, 1), cache_len, dtype=torch.int32,
-                         device=x.device)
+        pos = replicate_like(torch.full((B, 1), cache_len, dtype=torch.int32,
+                                        device=x.device), x)
         q = apply_rope(q, pos, theta)
         k = apply_rope(k, pos, theta)
-    cache_k[:, cache_len] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, cache_len] = v[:, 0].to(cache_v.dtype)
+    write_slot(cache_k, cache_len, k[:, 0])
+    write_slot(cache_v, cache_len, v[:, 0])
     q = q.reshape(B, 1, n_kv_heads, g, hd)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(),
-                          cache_k.float()) / math.sqrt(hd)
-    kpos = torch.arange(S_max, device=x.device)
-    valid = kpos <= cache_len
-    if window:
-        valid &= kpos > cache_len - window
-    scores = scores.masked_fill(~valid, -1e30)
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", w, cache_v.to(w.dtype))
+
+    def attend(q, cache_k, cache_v):
+        scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(),
+                              cache_k.float()) / math.sqrt(hd)
+        kpos = torch.arange(S_max, device=q.device)
+        valid = kpos <= cache_len
+        if window:
+            valid &= kpos > cache_len - window
+        scores = scores.masked_fill(~replicate_like(valid, scores), -1e30)
+        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        return torch.einsum("bkgqs,bskd->bqkgd", w, cache_v.to(w.dtype))
+
+    if is_dtensor(cache_k) and not splits(cache_k, 1):
+        # each rank's block of the cache holds whole sequences: attend on
+        # it, q laid out as the cache (DTensor's own einsum costs seconds
+        # of planning per new layout)
+        out = on_blocks(attend, cache_k.placements, q, cache_k, cache_v)
+    else:
+        out = attend(q, cache_k, cache_v)
     return (out.reshape(B, 1, n_heads * hd) @ params["wo"], cache_k,
             cache_v)
 
@@ -362,15 +411,24 @@ def mlp_init(key: torch.Tensor, d_model: int, d_ff: int, act: str,
     return p
 
 
-def mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor, act: str, mesh=None,
+        out_kind: str = "hidden") -> torch.Tensor:
     """SwiGLU (``silu(x @ wg) * (x @ wi)``) or GELU (JAX's default tanh
-    approximation), then ``@ wo``."""
+    approximation), then ``@ wo``. Under a ``mesh`` a 3-D x keeps the wide
+    products on ``"ffn"`` and the output on ``out_kind``."""
+    three_d = x.dim() == 3
     h = x @ params["wi"]
+    if three_d:
+        h = constrain(h, mesh, "ffn")
     if act == "swiglu":
-        h = F.silu(x @ params["wg"]) * h
+        g = x @ params["wg"]
+        if three_d:
+            g = constrain(g, mesh, "ffn")
+        h = F.silu(g) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ params["wo"]
+    out = h @ params["wo"]
+    return constrain(out, mesh, out_kind) if three_d else out
 
 
 # ---------------------------------------------------------------------------
@@ -436,7 +494,8 @@ def moe_route(gate: torch.Tensor, xg: torch.Tensor, top_k: int,
     # contiguous rows (over the middle axis of (G, k·gs, E), CUDA's scan
     # took 2 ms a layer at moonshot's prefill)
     order = idx.transpose(1, 2).reshape(G, 1, top_k * gs)
-    experts = torch.arange(E, device=idx.device)[None, :, None]
+    experts = replicate_like(
+        torch.arange(E, device=idx.device)[None, :, None], idx)
     oh = (order == experts).to(torch.int32)
     pos = (oh.cumsum(-1, dtype=torch.int32) - oh).gather(1, order)
     within = pos.reshape(G, top_k, gs).transpose(1, 2).long()
@@ -445,8 +504,8 @@ def moe_route(gate: torch.Tensor, xg: torch.Tensor, top_k: int,
 
 
 def moe(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
-        group_size: int, capacity_factor: float,
-        dispatch: str = "einsum"):
+        group_size: int, capacity_factor: float, mesh=None,
+        out_kind: str = "hidden", dispatch: str = "einsum"):
     """Mixture-of-experts FFN. x: (B, S, D) -> (y, aux_loss).
 
     The tokens are cut into G groups of gs (``moe_groups``); each group
@@ -467,7 +526,8 @@ def moe(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     the dropped ones and is cut off (JAX's ``.at[].add(mode="drop")``),
     and gathered back at ``min(within, C - 1)`` with their gate values.
     The expert products stay ``torch.einsum``, as the JAX package leaves
-    them to XLA."""
+    them to XLA. Under a ``mesh`` the output is constrained to
+    ``out_kind``."""
     B, S, D = x.shape
     gs, G, C = moe_groups(B * S, group_size, top_k, capacity_factor,
                           n_experts)
@@ -478,9 +538,11 @@ def moe(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     ce = F.one_hot(idx[..., 0], n_experts).float().mean((0, 1))
     aux = n_experts * (me * ce).sum()
 
-    g_ix = torch.arange(G, device=x.device)[:, None, None]
+    g_ix = replicate_like(
+        torch.arange(G, device=x.device)[:, None, None], x)
     if dispatch == "einsum":
-        s_ix = torch.arange(gs, device=x.device)[None, :, None]
+        s_ix = replicate_like(
+            torch.arange(gs, device=x.device)[None, :, None], x)
         c_ix = within.clamp(max=C - 1)     # a dropped choice writes 0
         at = (g_ix, s_ix, idx, c_ix)
         disp = x.new_zeros((G, gs, n_experts, C)).index_put(
@@ -506,7 +568,7 @@ def moe(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     else:
         picked = exp_out[idx, g_ix, within.clamp(max=C - 1)]
         y = (picked * gate_vals[..., None].to(x.dtype)).sum(2)
-    return y.reshape(B, S, D), aux
+    return constrain(y.reshape(B, S, D), mesh, out_kind), aux
 
 
 # ---------------------------------------------------------------------------
@@ -564,7 +626,11 @@ def conv(params: dict, x: torch.Tensor, stride: int = 1, groups: int = 1,
     (kh, kw, Cin/groups, Cout) HWIO, ``padding`` ``"SAME"`` or ``"VALID"``
     -> (B, H', W', Cout). Runs as ``F.conv2d`` on the channels-last view
     of x (no copy of x), the weights permuted to OIHW; asymmetric SAME
-    padding is added to the NHWC tensor first."""
+    padding is added to the NHWC tensor first. On a mesh each rank
+    convolves its block of the batch (``sharding.by_rows``)."""
+    if is_dtensor(x):
+        return by_rows(lambda xl, wl: conv({"w": wl}, xl, stride, groups,
+                                           padding), x, params["w"])
     w = params["w"]
     kh, kw = w.shape[0], w.shape[1]
     if padding == "SAME":

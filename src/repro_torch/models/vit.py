@@ -1,7 +1,8 @@
 """ViT / DeiT image classifier (encoder-only transformer, learned pos-emb,
 CLS token, optional DeiT distillation token): a port of
-``repro.models.vit`` for one card. Variable input resolution through the
-pos-table interpolation (the cls_384 cell).
+``repro.models.vit``. Variable input resolution through the pos-table
+interpolation (the cls_384 cell). ``mesh=`` constrains the residual
+stream as the JAX package does (``distributed.sharding``).
 
 This family is the Focus GT-CNN (vit-l16) and the base of the compressed
 cheap-CNN search space (vit-s16), as the paper's ResNet152 / ResNet18
@@ -30,6 +31,7 @@ import torch
 from repro_torch.common import prng
 from repro_torch.common.config import ViTConfig
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 
 
@@ -97,23 +99,27 @@ def _interp_pos(pos: torch.Tensor, n_special: int,
     return torch.cat([special, grid], dim=1)
 
 
-def _layer(cfg: ViTConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def _layer(cfg: ViTConfig, p: dict, x: torch.Tensor,
+           mesh=None) -> torch.Tensor:
     h = L.layernorm(p["ln1"], x)
     h = L.multihead_attention(p["attn"], h, n_heads=cfg.n_heads,
                               n_kv_heads=cfg.n_heads, causal=False,
-                              use_rope=False)
+                              use_rope=False, mesh=mesh)
     x = x + h
     h = L.layernorm(p["ln2"], x)
-    return x + L.mlp(p["mlp"], h, "gelu")
+    return constrain(x + L.mlp(p["mlp"], h, "gelu", mesh=mesh), mesh,
+                     "hidden")
 
 
-def forward(params: dict, images: torch.Tensor, cfg: ViTConfig, *,
-            features_only: bool = False) -> torch.Tensor:
+def forward(params: dict, images: torch.Tensor, cfg: ViTConfig, mesh=None,
+            *, features_only: bool = False) -> torch.Tensor:
     """images: (B, H, W, C) -> logits (B, n_classes) fp32.
 
     ``features_only`` returns the penultimate (pre-head) CLS
     representation in fp32: the Focus feature vector used for clustering
-    (§2.2.3 of the paper). DeiT's logits are the mean of its two heads'."""
+    (§2.2.3 of the paper). DeiT's logits are the mean of its two heads'.
+    Under a ``mesh`` the residual stream is constrained to ``"hidden"``,
+    as in the JAX package."""
     dt = L.compute_dtype(cfg.dtype)
     x = L.patch_embed(params["patch"], images.to(dt), cfg.patch)
     B, N, D = x.shape
@@ -123,8 +129,9 @@ def forward(params: dict, images: torch.Tensor, cfg: ViTConfig, *,
         toks.append(params["dist"].expand(B, 1, D))
         n_special = 2
     x = torch.cat(toks + [x], dim=1)
-    x = x + _interp_pos(params["pos_embed"], n_special, N)
-    x = L.run_layers(cfg, _layer, params, x)
+    x = constrain(x + _interp_pos(params["pos_embed"], n_special, N), mesh,
+                  "hidden")
+    x = L.run_layers(cfg, _layer, params, x, mesh)
     x = L.layernorm(params["final_ln"], x)
     cls = x[:, 0]
     if features_only:
@@ -137,5 +144,6 @@ def forward(params: dict, images: torch.Tensor, cfg: ViTConfig, *,
 
 
 def loss_fn(params: dict, images: torch.Tensor, labels: torch.Tensor,
-            cfg: ViTConfig):
-    return L.classification_loss(forward(params, images, cfg), labels)
+            cfg: ViTConfig, mesh=None):
+    return L.classification_loss(forward(params, images, cfg, mesh=mesh),
+                                 labels)

@@ -1,5 +1,5 @@
 """Checkpoint save and restore for the train loop: the port of
-``repro.train.checkpoint`` on one card.
+``repro.train.checkpoint``.
 
 Layout per step, the JAX package's:  <dir>/step_<N>/
     manifest.json     step, n_leaves, shapes, dtype names, extra
@@ -23,6 +23,15 @@ Saves are atomic (a temporary directory, then a rename), pruned to the
 ``keep`` newest, and run on a thread (``async_save``) with one save in
 flight; the device-to-host copy is taken before the thread starts, so
 the caller may update its tensors in place right after ``save``.
+
+Sharded trees: a tree with DTensor leaves (a train state on a mesh) is
+gathered leaf by leaf, whole, on every rank (a collective: every rank
+calls ``save``), and rank 0 writes it, as the JAX package writes leaves
+whole on one host; the bytes are those of an unsharded save of the same
+values. ``wait`` then holds every rank until the write is done.
+``restore(..., shardings=specs, mesh=device_mesh)`` places each leaf on
+its spec's placement, so a checkpoint written unsharded or on any mesh
+restores onto any mesh.
 """
 from __future__ import annotations
 
@@ -35,8 +44,10 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import distribute, is_dtensor
 
 
 def flatten(tree: Any) -> Tuple[List[Any], Any]:
@@ -75,8 +86,11 @@ def unflatten(spec: Any, leaves: List[Any]) -> Any:
 
 
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
-    """(a host copy of the leaf, its dtype name); bf16 as its int16 bits."""
+    """(a host copy of the leaf, its dtype name); bf16 as its int16 bits.
+    A DTensor is gathered whole first (a collective)."""
     if isinstance(leaf, torch.Tensor):
+        if is_dtensor(leaf):
+            leaf = leaf.full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy(), "bfloat16"
@@ -102,6 +116,7 @@ class CheckpointManager:
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._sharded = False             # the last save gathered DTensors
         os.makedirs(directory, exist_ok=True)
 
     # -- save -------------------------------------------------------------
@@ -110,8 +125,12 @@ class CheckpointManager:
         """Checkpoint ``tree`` (the caller bundles params and optimizer
         state) as ``step``, with the JSON-able ``extra``."""
         leaves, spec = flatten(tree)
+        sharded = any(is_dtensor(x) for x in leaves)
         host = [_to_host(x) for x in leaves]          # device->host copy
         self.wait()                                   # one save in flight
+        self._sharded = sharded
+        if sharded and dist.get_rank() != 0:
+            return                                    # rank 0 writes
         if self.async_save:
             self._thread = threading.Thread(
                 target=self._write_caught, args=(step, host, spec, extra))
@@ -151,10 +170,15 @@ class CheckpointManager:
         self._prune()
 
     def wait(self):
-        """Block until the save in flight is written; raise its error."""
+        """Block until the save in flight is written; raise its error.
+        After a sharded save every rank calls it: a barrier holds the
+        other ranks until rank 0 has written."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            self._sharded = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -175,9 +199,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: Optional[int] = None,
-                device: DeviceLike = "cuda") -> Tuple[int, Any, dict]:
+                device: DeviceLike = "cuda", shardings: Any = None,
+                mesh=None) -> Tuple[int, Any, dict]:
         """``(step, tree, extra)`` of ``step`` (the newest by default),
-        every leaf a tensor on ``device`` in its saved dtype."""
+        every leaf a tensor on ``device`` in its saved dtype. With
+        ``shardings`` (a tree of specs of the same structure, ``None``
+        where a leaf or subtree stays a plain tensor) and the
+        ``DeviceMesh`` ``mesh``, each leaf is distributed onto its spec's
+        placement (every rank of the mesh calls it)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -190,4 +219,7 @@ class CheckpointManager:
         with np.load(os.path.join(d, "leaves.npz")) as z:
             leaves = [_from_host(z[f"leaf_{i}"], dt, dev)
                       for i, dt in enumerate(manifest["dtypes"])]
-        return step, unflatten(spec, leaves), manifest["extra"]
+        tree = unflatten(spec, leaves)
+        if shardings is not None:
+            tree = distribute(tree, shardings, mesh)
+        return step, tree, manifest["extra"]

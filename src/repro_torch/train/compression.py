@@ -7,11 +7,14 @@ tensors: a port of the numerics of ``repro.train.compression``.
     residual of each step's quantization is carried in ``ef_state`` and
     added to the next step's gradient, so the bias cancels over steps.
 
-Both run in the JAX package's order of fp32 operations (the scale is
+  * ``compressed_psum`` - the quantized collective itself: an int8 sum
+    over one named axis of a ``DeviceMesh``.
+
+All run in the JAX package's order of fp32 operations (the scale is
 ``max(max |g|, 1e-12) / 127``, rounded half to even), so the same inputs
-give the same bits. One card has no data-parallel axis to reduce over:
-the collective itself, ``compressed_psum`` over a named mesh axis, waits
-with the parameter sharding of ``distributed/sharding.py`` (ROADMAP A14).
+give the same bits. On DTensor gradients (a train step on a mesh) the
+``max |g|`` of ``apply_ef`` is taken over the whole tensor, every shard:
+the JAX package's global value.
 """
 from __future__ import annotations
 
@@ -53,3 +56,24 @@ def apply_ef(grads: Sequence[torch.Tensor], ef_state: Sequence[torch.Tensor]
 def cast_bf16(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """The bf16 wire format's round trip."""
     return [g.to(torch.bfloat16).float() for g in grads]
+
+
+@torch.no_grad()
+def compressed_psum(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    """The int8-quantized sum of ``x`` over the ranks along ``axis_name``
+    of the ``DeviceMesh`` ``mesh``: JAX's ``compressed_psum`` inside
+    ``shard_map``, where ``x`` is this rank's local block (a plain
+    tensor). In JAX's order: the local scale, its max over the axis (one
+    shared scale), the levels requantized with it, their int32 sum (no
+    overflow), times the scale. Every rank along the axis gets the same
+    fp32 sum."""
+    import torch.distributed as dist
+    group = mesh.get_group(axis_name)
+    xf = x.float()
+    _, scale = _quant_int8(xf)
+    scale = scale.reshape(1).clone()
+    dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+    scale = scale.reshape(())
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int32)
+    dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group)
+    return q.float() * scale

@@ -8,6 +8,12 @@ weights, never a scale or a bias), and ``clip_grad_norm_`` divides by
 ``norm + 1e-6`` where the reference uses ``1e-9``. ``update`` writes the
 reference's step out over tensors; unlike the reference, which returns
 new arrays, it updates the parameters and the state in place.
+
+On a mesh (DTensor parameters, gradients and moments) the global norm
+is the whole model's, and a parameter whose gradient and moments share
+its placement is updated on each rank's local block: the same
+elementwise arithmetic on the same values, without DTensor's dispatch
+per operation.
 """
 from __future__ import annotations
 
@@ -66,6 +72,24 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
                           for t in tensors))
 
 
+def _local(p, *ts):
+    """The local blocks of ``p`` and ``ts`` when they are DTensors of one
+    placement (the update is elementwise there), else None."""
+    if not hasattr(p, "to_local") or any(
+            not hasattr(t, "to_local") or t.placements != p.placements
+            or t.device_mesh != p.device_mesh for t in ts):
+        return None
+    return [p.to_local()] + [t.to_local() for t in ts]
+
+
+def _like(t: torch.Tensor, p) -> torch.Tensor:
+    """A local block ``t`` as a DTensor laid out as ``p``."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, p.device_mesh, p.placements,
+                              run_check=False, shape=p.shape,
+                              stride=p.stride())
+
+
 @torch.no_grad()
 def update(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
            state: dict, cfg: OptConfig) -> dict:
@@ -74,11 +98,9 @@ def update(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     stays on the parameters' device (no host sync)."""
     step = state["step"]
     gnorm = global_norm(grads)
+    scale = None
     if cfg.clip_norm > 0:
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-        grads = [g.float() * scale for g in grads]
-    else:
-        grads = [g.float() for g in grads]
 
     lr = lr_at(cfg, step)
     b1c = float(_f32(1) - _f32(cfg.b1) ** _f32(step + 1))
@@ -87,13 +109,19 @@ def update(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     new_m: List[torch.Tensor] = []
     new_v: List[torch.Tensor] = []
     for p, g, m, v in zip(params, grads, state["m"], state["v"]):
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        u = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        local = _local(p, g, m, v)
+        pt, gt, mt, vt = local or (p, g, m, v)
+        sc = scale
+        if local is not None and scale is not None:
+            sc = scale.full_tensor()
+        gt = gt.float() * sc if sc is not None else gt.float()
+        mt = cfg.b1 * mt + (1 - cfg.b1) * gt
+        vt = cfg.b2 * vt + (1 - cfg.b2) * gt * gt
+        u = (mt / b1c) / (torch.sqrt(vt / b2c) + cfg.eps)
         if cfg.weight_decay > 0 and p.dim() >= 2:     # decay matrices only
-            u = u + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * u)
-        new_m.append(m)
-        new_v.append(v)
+            u = u + cfg.weight_decay * pt.float()
+        pt.copy_(pt.float() - lr * u)
+        new_m.append(_like(mt, p) if local is not None else mt)
+        new_v.append(_like(vt, p) if local is not None else vt)
     state.update(m=new_m, v=new_v, step=step + 1)
     return {"lr": lr, "grad_norm": gnorm}

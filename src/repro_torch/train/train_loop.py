@@ -1,4 +1,4 @@
-"""The train loop on one card: gradient accumulation over micro-batches,
+"""The train loop: gradient accumulation over micro-batches,
 gradient compression, checkpoint and restart, preemption handling. A
 port of ``repro.train.train_loop``, which both the specialized cheap
 CNNs (paper §4.3) and the decoder LM run.
@@ -27,6 +27,13 @@ part's metrics kept; then the compression, then ``optimizer.update`` (in
 place). A module's parameters are its ``parameters()``; a tree's leaves
 are flattened as ``train.checkpoint`` flattens them (dict keys sorted),
 so a checkpoint's leaves are the JAX package's for the same tree.
+
+On a mesh the parameters are DTensors (``distributed.sharding``): each
+gradient is redistributed to its parameter's placement before the
+compression and the update, so the update is local to each shard (and
+``apply_ef``'s ``max |g|`` is the whole tensor's, JAX's global value);
+``train(..., mesh=)`` lays each batch out with ``batch_spec`` and puts
+a restored checkpoint's leaves on the parameters' placements.
 """
 from __future__ import annotations
 
@@ -40,6 +47,9 @@ import torch
 from torch import nn
 
 from repro_torch.common import prng
+from repro_torch.distributed.sharding import (batch_spec, distribute,
+                                              full_tensor, is_dtensor,
+                                              replicate_like)
 from repro_torch.train import compression as comp
 from repro_torch.train import optimizer as opt
 from repro_torch.train.checkpoint import CheckpointManager, flatten
@@ -110,8 +120,33 @@ def takes_rng(loss_fn: Callable) -> bool:
                for p in ps) >= 3
 
 
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Gradient ``g`` on parameter ``p``'s placement (a DTensor's backward
+    leaves partial sums and other layouts); plain tensors as they are."""
+    if is_dtensor(p):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _like(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A restored full value ``r`` laid out as the leaf ``t`` it is copied
+    into (its placement when ``t`` is a DTensor)."""
+    if not is_dtensor(t):
+        return r
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(r.to(t.device), t.device_mesh,
+                             t.placements, src_data_rank=None)
+
+
+def _batch_specs(batch, mesh):
+    """``batch_spec`` for every tensor of a batch (a dict of tensors)."""
+    if isinstance(batch, dict):
+        return {k: _batch_specs(v, mesh) for k, v in batch.items()}
+    return batch_spec(mesh, batch.dim() - 1)
+
+
 def make_train_step(loss_fn: Callable, opt_cfg: opt.OptConfig,
-                    train_cfg: TrainConfig) -> Callable:
+                    train_cfg: TrainConfig, mesh=None) -> Callable:
     """``step(params, opt_state, ef_state, batch, rng=None) -> (params,
     opt_state, ef_state, metrics)``. ``opt_state`` is ``optimizer.init``
     of ``param_leaves(params)``; ``ef_state`` is
@@ -120,7 +155,9 @@ def make_train_step(loss_fn: Callable, opt_cfg: opt.OptConfig,
     ``common.prng`` key) goes to a loss that takes one, split once per
     micro-batch when there is more than one. ``metrics`` holds
     ``loss_fn``'s metrics, ``loss``, ``lr`` and ``grad_norm``, as tensors
-    on the device (``lr`` a float)."""
+    on the device (``lr`` a float). ``mesh`` is JAX's argument: the step
+    runs on whatever layout its DTensor parameters carry (each gradient
+    is placed as its parameter before the update)."""
     n_mb = train_cfg.n_microbatches
     with_rng = takes_rng(loss_fn)
 
@@ -131,7 +168,9 @@ def make_train_step(loss_fn: Callable, opt_cfg: opt.OptConfig,
             loss, metrics = loss_fn(params, batch, rng)
         else:
             loss, metrics = loss_fn(params, batch)
-        return loss.detach(), metrics, torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), metrics, [_placed_like(g, p)
+                                        for g, p in zip(grads, leaves)]
 
     def step(params, opt_state, ef_state, batch, rng=None):
         leaves = param_leaves(params)
@@ -141,8 +180,9 @@ def make_train_step(loss_fn: Callable, opt_cfg: opt.OptConfig,
                         else [None] * n_mb)
                 grads = [torch.zeros_like(p, dtype=torch.float32)
                          for p in leaves]
-                loss = torch.zeros((), dtype=torch.float32,
-                                   device=leaves[0].device)
+                loss = replicate_like(torch.zeros(
+                    (), dtype=torch.float32, device=leaves[0].device),
+                    leaves[0])
                 for i in range(n_mb):
                     l, metrics, g = grads_of(params, leaves,
                                              _microbatch(batch, i, n_mb),
@@ -170,8 +210,8 @@ def make_train_step(loss_fn: Callable, opt_cfg: opt.OptConfig,
 
 def train(loss_fn: Callable, params, data_iter: Iterator[Dict[str, Any]],
           opt_cfg: opt.OptConfig, train_cfg: TrainConfig,
-          ckpt: Optional[CheckpointManager] = None, resume: bool = True,
-          hooks=()) -> Tuple[Any, List[dict]]:
+          ckpt: Optional[CheckpointManager] = None, mesh=None,
+          resume: bool = True, hooks=()) -> Tuple[Any, List[dict]]:
     """Run the loop to ``train_cfg.steps``; returns ``(params, history)``.
 
     ``history`` holds one entry at the first step run and one every
@@ -191,8 +231,11 @@ def train(loss_fn: Callable, params, data_iter: Iterator[Dict[str, Any]],
     JAX package's loop saves it again when ``ckpt_every`` just did, and
     re-labels a restored state as ``steps`` when no step was left). The
     earlier SIGTERM handler is back in place when ``train`` returns.
+
+    With a ``mesh`` (a ``DeviceMesh`` whose DTensors ``params`` are), each
+    batch is laid out by ``batch_spec`` and every rank runs the loop.
     """
-    step_fn = make_train_step(loss_fn, opt_cfg, train_cfg)
+    step_fn = make_train_step(loss_fn, opt_cfg, train_cfg, mesh=mesh)
     leaves = param_leaves(params)
     int8_ef = train_cfg.compression == "int8_ef"
     start_step = 0
@@ -201,9 +244,12 @@ def train(loss_fn: Callable, params, data_iter: Iterator[Dict[str, Any]],
             device=leaves[0].device)
         with torch.no_grad():
             for t, r in zip(leaves, flatten(p)[0]):
-                t.copy_(r)
-        opt_state = {"m": o["m"], "v": o["v"], "step": int(o["step"])}
-        ef_state = e if int8_ef else 0
+                t.copy_(_like(r, t))
+        opt_state = {"m": [_like(r, t) for r, t in zip(o["m"], leaves)],
+                     "v": [_like(r, t) for r, t in zip(o["v"], leaves)],
+                     "step": int(o["step"])}
+        ef_state = ([_like(r, t) for r, t in zip(e, leaves)] if int8_ef
+                    else 0)
         for _ in range(int(extra.get("batches_consumed", start_step))):
             next(data_iter)                      # replay iterator position
     else:
@@ -218,12 +264,15 @@ def train(loss_fn: Callable, params, data_iter: Iterator[Dict[str, Any]],
     try:
         for step in range(start_step, train_cfg.steps):
             batch = next(data_iter)
+            if mesh is not None:
+                batch = distribute(batch, _batch_specs(batch, mesh), mesh)
             rng, sub = prng.split(rng)
             with timer.measure():
                 params, opt_state, ef_state, metrics = step_fn(
                     params, opt_state, ef_state, batch, sub)
             if (step + 1) % train_cfg.log_every == 0 or step == start_step:
-                m = {k: float(v) for k, v in metrics.items()}
+                m = {k: float(v) for k, v in
+                     full_tensor(metrics).items()}
                 m["step"] = step + 1
                 m["step_time_s"] = timer.last
                 history.append(m)

@@ -808,3 +808,45 @@ def test_built_prefill_step_takes_the_flash_route(cuda):
     assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
     want = T.prefill(params, tokens, cfg, attn_impl="flash")
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_kernels_on_dtensors_equal_direct_calls(cuda):
+    """On a one-rank NCCL mesh (``launch.mesh.make_mesh``), ``flash_attention``
+    and ``topk`` on DTensors run the kernel through ``local_map``, one
+    launch a call, and equal the direct calls on the local tensors
+    bitwise."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    try:
+        assert dist.get_backend() == "nccl"
+        g = torch.Generator(device=cuda).manual_seed(7)
+        q, k, v = (torch.randn((2, 256, 16, 128), generator=g,
+                               device=cuda).to(torch.bfloat16)
+                   for _ in range(3))
+        pl = S.to_placements(S.act_spec(mesh, "heads"), mesh)
+        dq, dk, dv = (distribute_tensor(t, mesh, pl) for t in (q, k, v))
+        before = ops.LAUNCHES["flash_attention"]
+        got = ops.flash_attention(dq, dk, dv, causal=True)
+        assert isinstance(got, DTensor)
+        assert ops.LAUNCHES["flash_attention"] == before + 1
+        want = ops.flash_attention(q, k, v, causal=True)
+        assert torch.equal(got.to_local(), want)
+
+        probs = torch.softmax(torch.randn((4096, 64), generator=g,
+                                          device=cuda), -1)
+        dprobs = distribute_tensor(probs, mesh, S.to_placements(
+            S.batch_spec(mesh), mesh))
+        before = ops.LAUNCHES["topk"]
+        vals, idx = ops.topk(dprobs, 6)
+        assert ops.LAUNCHES["topk"] == before + 1
+        wv, wi = ops.topk(probs, 6)
+        assert torch.equal(vals.to_local(), wv)
+        assert torch.equal(idx.to_local(), wi)
+    finally:
+        dist.destroy_process_group()

@@ -387,7 +387,7 @@ def test_long_prefill_recipe(monkeypatch):
     traced on meta tensors at one layer."""
     calls = []
 
-    def prefill(params, tokens, cfg, attn_impl="einsum"):
+    def prefill(params, tokens, cfg, attn_impl="einsum", mesh=None):
         calls.append((tuple(tokens.shape), cfg.attn_q_chunk,
                       cfg.act_sharding, attn_impl))
         return torch.empty((tokens.shape[0], 1, cfg.vocab_size),
