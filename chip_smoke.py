@@ -182,7 +182,22 @@ Phases, each fatal on failure (no phase's failure is caught):
    ``choose_mesh()``, every leaf bitwise on its placement; 0
    ``constrain`` misses. One card shows a one-rank mesh only: the
    multi-rank semantics are ``tests/test_torch_mesh.py``'s (4 gloo
-   ranks on the CPU);
+   ranks on the CPU).
+   Then ``gate_tune_path``: ``launch.hillclimb.gate_tune`` (the
+   redundancy gate and the adaptive sampler, window by window, with the
+   recall probe) on the card at the JAX package's defaults, its record
+   equal to the CPU run's, ``pixel_match`` and ``centroid_assign``
+   launched; again over 3600 frames, the gate's ms per frame (its match
+   calls, host-inclusive) and its ring's upload bytes per call, and
+   both kernels held against their plain versions on the inputs that
+   run gave them (the largest ring, the last centroid table) and on
+   crops planted within 1% of the threshold. Then ``dryrun_path`` runs
+   ``launch.dryrun`` in subprocesses on this torch:
+   olmo-1b train_4k and prefill_32k, moonshot prefill_32k (its
+   all-to-all planned as NCCL would) and vit-l16 cls_224, each on the
+   (16, 16) and (2, 16, 16) fake meshes; each record's summary line is
+   printed, and any record not ``ok`` fails the smoke (the modelled
+   cluster's numbers, traced on the host: no kernel runs);
 4. card against CPU: the 120 s of frames through
    ``BackgroundSubtractor(device="cpu")`` give the card's boxes on every
    frame and its final background bit for bit; on a 60 s cut, spec1-spec3
@@ -3895,6 +3910,257 @@ def mesh_path(ops, peaks):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: the gate tune and the dry run (repro_torch.launch.hillclimb,
+# repro_torch.launch.dryrun)
+# ---------------------------------------------------------------------------
+
+GATE_LONG_FRAMES = 3600
+# the dry run's cells on the card's torch: (arch, cells), each on both
+# production meshes
+DRYRUN_CELLS = (("olmo-1b", "train_4k,prefill_32k"),
+                ("moonshot-v1-16b-a3b", "prefill_32k"),
+                ("vit-l16", "cls_224"))
+DRYRUN_TIMEOUT_S = 240
+
+
+def gate_tune_path(ops, ref):
+    """``hillclimb.gate_tune`` on the card at the JAX package's defaults,
+    its record equal to the CPU run's in this process; the launch
+    counters zeroed before the card's run and read after (``pixel_match``
+    from the gate and the tracker, ``centroid_assign`` from the
+    clustering, each > 0). Then again at ``GATE_LONG_FRAMES`` frames: the
+    redundancy gate's host-inclusive ms per frame (its ``match`` calls,
+    each synchronised by the match indices' read-back), its ring's upload
+    bytes per ``match_flat`` call, and the gate's own ``pixel_match``
+    launches. That run keeps the inputs of the gate's ``match_flat`` call
+    with the largest ring and of the clustering's last
+    ``centroid_assign`` call, and ``gate_kernels_check`` holds both
+    kernels on them against their plain versions."""
+    import torch
+    from repro_torch.core import streaming as S
+    from repro_torch.launch import hillclimb
+    t_path = time.perf_counter()
+    t0 = time.perf_counter()
+    cpu = hillclimb.gate_tune(device="cpu")
+    cpu_s = time.perf_counter() - t0
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    card = hillclimb.gate_tune(device="cuda")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    check(card == cpu, "the card's gate_tune record differs from the CPU's")
+    check(launches["pixel_match"] > 0 and launches["centroid_assign"] > 0,
+          f"gate_tune's kernels never launched: {launches}")
+
+    gate = {"match_s": 0.0, "calls": 0, "ring_bytes": [], "launches": 0}
+    # the inputs of the gate's call with the largest ring and of the
+    # clustering's last call, kept by reference (each call makes its own)
+    seen = {}
+    real_match, real_flat = S._RedundancyGate.match, S.match_flat
+    real_stacked = ops.centroid_assign_stacked
+
+    def timed_match(self, f, crops2d):
+        t = time.perf_counter()
+        out = real_match(self, f, crops2d)
+        gate["match_s"] += time.perf_counter() - t
+        gate["calls"] += 1
+        return out
+
+    def counted_flat(a, b, threshold, device="cuda"):
+        before = ops.LAUNCHES["pixel_match"]
+        out = real_flat(a, b, threshold, device=device)
+        gate["launches"] += ops.LAUNCHES["pixel_match"] - before
+        gate["ring_bytes"].append(int(b.nbytes))
+        if "gate" not in seen or len(b) > len(seen["gate"][1]):
+            seen["gate"] = (a, b, threshold)
+        return out
+
+    def kept_stacked(feats, centroids, threshold=None):
+        seen["assign"] = (feats, centroids, threshold)
+        return real_stacked(feats, centroids, threshold=threshold)
+
+    S._RedundancyGate.match, S.match_flat = timed_match, counted_flat
+    ops.centroid_assign_stacked = kept_stacked
+    ops.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        long = hillclimb.gate_tune(n_frames=GATE_LONG_FRAMES, device="cuda")
+        torch.cuda.synchronize()
+        long_s = time.perf_counter() - t0
+    finally:
+        S._RedundancyGate.match, S.match_flat = real_match, real_flat
+        ops.centroid_assign_stacked = real_stacked
+    long_launches = dict(ops.LAUNCHES)
+    check(gate["launches"] > 0, "the gate never launched pixel_match")
+    kernels = gate_kernels_check(ops, ref, seen)
+    ring = gate["ring_bytes"]
+    return {
+        "record_equal_cpu": True, "record": card, "launches": launches,
+        "kernels_on_path_inputs": kernels, "cpu_s": cpu_s, "card_s": card_s,
+        "long": {"n_frames": GATE_LONG_FRAMES, "wall_s": long_s,
+                 "n_objects": long["n_objects"],
+                 "final_stride": long["final_stride"],
+                 "launches": long_launches,
+                 "gate_match_calls": gate["calls"],
+                 "gate_match_s": gate["match_s"],
+                 "gate_ms_per_frame": 1e3 * gate["match_s"]
+                 / GATE_LONG_FRAMES,
+                 "gate_pixel_match_launches": gate["launches"],
+                 "ring_upload_calls": len(ring),
+                 "ring_upload_bytes_per_call_mean": sum(ring) / len(ring),
+                 "ring_upload_bytes_per_call_max": max(ring)},
+        "path_s": time.perf_counter() - t_path}
+
+
+def gate_kernels_check(ops, ref, seen):
+    """``pixel_match`` and ``centroid_assign`` on the inputs that
+    ``gate_tune_path``'s card run gave them, against their plain
+    versions, as ``_match_pair`` and ``_assign_pair`` hold them (indices
+    exact; distances within rtol 1e-6, and 1e-5 / 1e-4 for squared L2):
+    the gate's crops against its ring as they came, and crops planted next
+    to the threshold. A planted crop is ring row k moved by c in every
+    element, toward the middle of [0, 1], so that its least mean |a - b|
+    is c = threshold * (1 + eps); duplicates in the ring make it a tie to
+    the lowest index. Likewise the clustering's features against its
+    table as they came (one slot, dead rows at 1e9), through the stacked
+    launch the path makes and a solo one, and features at distance
+    T * (1 + eps) from live centroids. eps runs over -1e-2 .. 1e-2: the
+    minima lie within 1% of the threshold, on both sides of it."""
+    import numpy as np
+    import torch
+    check("gate" in seen and "assign" in seen,
+          f"the card's gate_tune made no call to keep: {sorted(seen)}")
+    r = np.random.default_rng(25)
+    eps = np.array([-1e-2, -1e-3, -1e-4, 1e-4, 1e-3, 1e-2])
+    dev = seen["assign"][0].device
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+    a, b, thr = seen["gate"]
+    err_pm = _match_pair(ops, ref, t(a), t(b), thr)[0]
+    k = r.choice(len(b), len(eps), replace=False)
+    near = b[k] + (np.where(b[k] > 0.5, -1.0, 1.0)
+                   * (thr * (1 + eps))[:, None]).astype(np.float32)
+    err, m = _match_pair(ops, ref, t(near), t(b), thr)
+    d = ref.pixel_match_ref(t(near), t(b), thr)[1].cpu().numpy()
+    check((np.abs(d / thr - 1 - eps) < 1e-4).all(),
+          f"planted gate minima not at the threshold: {d / thr}")
+    check(((m >= 0) == (eps < 0)).all(),
+          f"pixel_match near the threshold: {m} for eps {eps}")
+    err_pm = max(err_pm, err)
+
+    f, c, T = seen["assign"]
+    live = c[0, :, 0] < 1e8
+    check(live.any(), "the kept centroid table has no live row")
+    got = ops.centroid_assign_stacked(f, c, threshold=T)
+    want = ref.centroid_assign_stacked_ref(f, c, T)
+    check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+          "centroid_assign_stacked differs from its plain version on the "
+          "path's inputs")
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+    err_ca = _assign_pair(ops, ref, f[0], c[0], T)[0]
+    rows = torch.nonzero(live).flatten().cpu().numpy()
+    k = r.choice(rows, len(eps), replace=len(rows) < len(eps))
+    v = r.normal(size=(len(eps), c.shape[2]))
+    v *= (T * (1 + eps) / np.linalg.norm(v, axis=1))[:, None]
+    fn = c[0].cpu().numpy()[k] + v.astype(np.float32)
+    err, j, m = _assign_pair(ops, ref, t(fn), c[0], T)
+    d2 = ref.centroid_assign_ref(t(fn), c[0], T)[0].cpu().numpy()
+    check((np.abs(np.sqrt(d2) / T - 1 - eps) < 1e-3).all(),
+          f"planted assign minima not at the threshold: {np.sqrt(d2) / T}")
+    check((m == (eps < 0)).all(),
+          f"centroid_assign near the threshold: {m} for eps {eps}")
+    return {"pixel_match": {"ring": list(b.shape), "crops": len(a),
+                            "threshold": thr, "max_abs_err": err_pm},
+            "centroid_assign": {"feats": list(f.shape),
+                                "centroids": list(c.shape),
+                                "live": int(live.sum()), "threshold": T,
+                                "max_abs_err": max(err_ca, err)}}
+
+
+def dryrun_start(out_dir):
+    """The dry run of ``DRYRUN_CELLS`` on both production meshes, started
+    now in subprocesses on this machine's torch (a fake process group is
+    global state of a process) and read by ``dryrun_finish``: each
+    model's cells on the 512-rank mesh in a process of their own (its
+    DTensor planning takes several times the 256-rank mesh's), and every
+    cell on the 256-rank mesh in one more."""
+    code = ("import json, sys\n"
+            "from repro_torch.launch.dryrun import main\n"
+            "rcs = [main(a) for a in json.loads(sys.argv[1])]\n"
+            "sys.exit(max(rcs))\n")
+
+    def argv(arch, cells, mesh):
+        return ["--arch", arch, "--shape", cells, "--mesh", mesh, "--out",
+                out_dir]
+
+    jobs = [[argv(a, c, "multi")] for a, c in DRYRUN_CELLS]
+    jobs.append([argv(a, c, "single") for a, c in DRYRUN_CELLS])
+    env = dict(os.environ, PYTHONPATH=SRC)
+    return [subprocess.Popen([sys.executable, "-c", code, json.dumps(j)],
+                             env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+            for j in jobs]
+
+
+def dryrun_stop(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def dryrun_finish(procs, out_dir, t_start):
+    """Waits for the dry run, prints each record's summary line, and
+    fails on any record that is not ``ok`` or traced no FLOP, and on a
+    MoE cell that planned no all-to-all."""
+    from repro_torch.launch.dryrun import summary
+    try:
+        deadline = time.perf_counter() + DRYRUN_TIMEOUT_S
+        logs = [p.communicate(timeout=max(1.0, deadline
+                                          - time.perf_counter()))[0]
+                for p in procs]
+    finally:
+        dryrun_stop(procs)
+    wall = time.perf_counter() - t_start
+    for p, log in zip(procs, logs):
+        check(p.returncode == 0,
+              f"the dry run failed ({p.returncode}):\n{log[-3000:]}")
+    recs = []
+    for f in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, f)) as fh:
+            rec = json.load(fh)
+        tag = "multi" if "pod" in rec.get("mesh", {}) else "single"
+        print(f"[dryrun] {rec['arch']} x {rec['cell']} x {tag}"
+              f"{summary(rec)}", flush=True)
+        check(rec.get("ok") and not rec.get("skipped"),
+              f"dry run of {f}: {rec.get('error', rec.get('skip_reason'))}")
+        check(rec["flops_per_device"] > 0, f"dry run of {f} traced no FLOP")
+        if rec["arch"].startswith("moonshot"):
+            check(rec["collectives"]["counts"]["all-to-all"] > 0,
+                  f"dry run of {f} planned no all-to-all")
+        recs.append({
+            "arch": rec["arch"], "cell": rec["cell"], "mesh": tag,
+            "trace_s": rec["compile_s"],
+            "flops_per_device": rec["flops_per_device"],
+            "bytes_per_device": rec["bytes_per_device"],
+            "live_gb_per_device": rec["memory"]["live_bytes_per_device"]
+            / 1e9, "fits_80gb_hbm": rec["memory"]["fits_80gb_hbm"],
+            "collective_counts": rec["collectives"]["counts"],
+            "dominant": rec["roofline"]["dominant"],
+            "bound_step_s": rec["roofline"]["bound_step_s"],
+            "roofline_fraction": rec["roofline_fraction"]})
+    check(len(recs) == 2 * sum(len(c.split(",")) for _, c in DRYRUN_CELLS),
+          f"the dry run wrote {len(recs)} records")
+    return {"records": recs, "wall_s": wall,
+            "note": "modelled H100 cluster, traced on this host's CPU; no "
+                    "kernel runs"}
+
+
+# ---------------------------------------------------------------------------
 # phase 4: card against CPU
 # ---------------------------------------------------------------------------
 
@@ -5029,6 +5295,20 @@ def main():
           "elapsed_s": elapsed()})
     fa["launches_mesh_path"] = meshed["launches"]["flash_attention"]
     tk["launches_mesh_path"] = meshed["launches"]["topk"]
+    # the gate tune on the card, then the dry run in subprocesses (after
+    # the gate's timed run, so that their tracing loads no host core of it)
+    t_two = time.perf_counter()
+    gated = gate_tune_path(ops, ref)
+    emit({"phase": "gate_tune_path", "gpu": smi, **gated,
+          "elapsed_s": elapsed()})
+    with tempfile.TemporaryDirectory() as dry_dir:
+        dried = dryrun_finish(dryrun_start(dry_dir), dry_dir,
+                              time.perf_counter())
+    emit({"phase": "dryrun_path", "gpu": smi, **dried,
+          "two_phases_s": time.perf_counter() - t_two,
+          "elapsed_s": elapsed()})
+    for entry in (ca, pm):
+        entry["launches_gate_tune_path"] = gated["launches"][entry["name"]]
 
     # -- phase 4: card against CPU --------------------------------------------
     emit({"phase": "card_vs_cpu", **card_vs_cpu(serve_args),

@@ -428,6 +428,7 @@ class StreamingIngestor:
         if self.cfg.frame_stride < 1:
             raise ValueError(
                 f"frame_stride must be >= 1: {self.cfg.frame_stride}")
+        self._frame_stride = self.cfg.frame_stride
         # the index exists up front whenever the class width is known, so a
         # QueryEngine can bind to it before the first chunk arrives
         self._index: Optional[TopKIndex] = None
@@ -513,6 +514,20 @@ class StreamingIngestor:
         concatenated stream."""
         return self._shard_obj_base
 
+    @property
+    def frame_stride(self) -> int:
+        return self._frame_stride
+
+    def set_frame_stride(self, stride: int):
+        """Retarget the sampling stride (the adaptive controller's hook,
+        ``core.params.AdaptiveSampler``). Takes effect from the next
+        ``feed``. A stride changed mid-run gives up the chunked ==
+        one-shot byte identity (a one-shot run cannot replay a stride
+        schedule), so only live deployments drive it."""
+        if stride < 1:
+            raise ValueError(f"frame_stride must be >= 1: {stride}")
+        self._frame_stride = int(stride)
+
     # -- feeding ---------------------------------------------------------------
 
     def feed(self, crops: np.ndarray, frames: np.ndarray,
@@ -551,11 +566,11 @@ class StreamingIngestor:
         if n == 0:
             return
         self._max_frame = int(frames[-1])
-        if self.cfg.frame_stride > 1:
+        if self._frame_stride > 1:
             # absolute sampling grid: frame f is kept iff f % stride == 0,
             # a function of the stream alone — dropped objects behave as
             # if never detected (no ids, no stats beyond n_sampled_out)
-            keep = frames % self.cfg.frame_stride == 0
+            keep = frames % self._frame_stride == 0
             self.stats.n_sampled_out += n - int(keep.sum())
             crops, frames = crops[keep], frames[keep]
             if obj_ids is not None:

@@ -268,7 +268,22 @@ _ACT = {
     "logits": lambda dp, mp: (dp, None, mp),              # (B, S, V)
     "images": lambda dp, mp: (dp, None, None, None),      # (B, H, W, C)
     "replicated": lambda dp, mp: (),
+    # the port's own, where JAX leaves the MoE to XLA's propagation:
+    # token groups (G, gs, D) over every axis; expert buffers (E, G, C,
+    # D) with the experts over "model" (EP) and the groups over the data
+    # axes for the expert products, and laid out as the groups for the
+    # combine. Between the layouts DTensor plans GShard's two all-to-alls
+    "groups": lambda dp, mp: (_join(dp, mp), None, None),
+    "experts": lambda dp, mp: (mp, dp, None, None),
+    "expert_groups": lambda dp, mp: (None, _join(dp, mp), None, None),
 }
+
+
+def _join(*entries):
+    """One spec entry over the axes of several (names, tuples, None)."""
+    axes = tuple(a for e in entries if e is not None
+                 for a in (e if isinstance(e, tuple) else (e,)))
+    return axes if len(axes) > 1 else (axes[0] if axes else None)
 
 
 def act_spec(mesh, kind: str) -> Spec:
@@ -282,13 +297,20 @@ def act_spec(mesh, kind: str) -> Spec:
 # Specs on a DeviceMesh: placements, distribution, constraints
 # ---------------------------------------------------------------------------
 
-def to_placements(spec: Spec, device_mesh) -> tuple:
+def to_placements(spec: Spec, device_mesh, shape=None) -> tuple:
     """DTensor placements of ``spec`` on ``device_mesh``: per mesh dim,
     ``Shard(d)`` where tensor dim d's entry names it, else
     ``Replicate()``. A tuple entry must list its axes in the mesh's order
     (major to minor), as every rule does. A mesh dim of size 1 splits
     nothing and is ``Replicate()`` (DTensor refuses to view a dimension
-    sharded over it when the dimension has size 1)."""
+    sharded over it when the dimension has size 1).
+
+    With the tensor's ``shape``, a dimension that its axes do not divide
+    (a batch of 1 over 16 data ranks, 12 heads over 16 model ranks)
+    keeps the largest of their products that divides it, and the other
+    axes are ``Replicate()`` (a batch of 16 over ("pod", "data") = 32
+    goes over "data"): XLA pads such a split to one row a device,
+    DTensor cannot fold or split the uneven blocks it would make."""
     from torch.distributed.tensor import Replicate, Shard
     names = axis_names(device_mesh)
     sizes = mesh_shape(device_mesh)
@@ -301,9 +323,15 @@ def to_placements(spec: Spec, device_mesh) -> tuple:
         if idx != sorted(idx):
             raise ValueError(f"spec entry {entry} is not in the mesh's "
                              f"axis order {names}")
+        idx = [i for i in idx if sizes[names[i]] > 1]
+        if shape is not None:
+            subsets = [[i for b, i in enumerate(idx) if m >> b & 1]
+                       for m in range(1 << len(idx))]
+            idx = max((c for c in subsets if shape[d] % math.prod(
+                sizes[names[i]] for i in c) == 0),
+                key=lambda c: math.prod(sizes[names[i]] for i in c))
         for i in idx:
-            if sizes[names[i]] > 1:
-                out[i] = Shard(d)
+            out[i] = Shard(d)
     return tuple(out)
 
 
@@ -366,16 +394,145 @@ def replicate_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
                               run_check=False)
 
 
+class _DenseGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+class _GradLike(torch.autograd.Function):
+    """The identity on a DTensor, whose gradient is redistributed to the
+    DTensor's own placements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+        mesh, pl = g.device_mesh, ctx.placements
+        cut = {p.dim for p, q in zip(pl, g.placements)
+               if isinstance(p, Shard) and p != q}
+        if not all(isinstance(q, Replicate) or p == q
+                   for p, q in zip(pl, g.placements)) or any(
+                isinstance(q, Shard) and q.dim in cut for q in g.placements):
+            return g.redistribute(mesh, pl)
+        # g is whole along the dims x splits: each rank cuts its block
+        # out of its local tensor (a view: a whole expanded gradient is
+        # never copied, as redistribute would copy it)
+        shape, off = compute_local_shape_and_global_offset(g.shape, mesh, pl)
+        loc = g.to_local()
+        for d in cut:
+            loc = loc.narrow(d, off[d], shape[d])
+        return DTensor.from_local(loc, mesh, pl, run_check=False,
+                                  shape=g.shape, stride=g.stride())
+
+
+def grad_like(x: torch.Tensor) -> torch.Tensor:
+    """x, whose gradient arrives laid out as x: a DTensor's sum over a
+    sharded dimension hands back a gradient whole on every rank (its
+    expansion), which the next op would gather whole; redistributed, each
+    rank keeps its block. A plain tensor passes as it is."""
+    return _GradLike.apply(x) if is_dtensor(x) else x
+
+
+class _LogSumExp(torch.autograd.Function):
+    """logsumexp over the last dim from its max and its sum, reductions
+    DTensor keeps on a sharded dim (all-reduced), where its own
+    logsumexp gathers the dim whole. torch's formula, step for step (an
+    infinite max taken as 0), and its gradient, ``g * exp(x - lse)``,
+    which stays sharded as x."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = x.amax(-1, keepdim=True)
+        m = m.masked_fill(m.abs() == math.inf, 0)
+        lse = torch.log(torch.exp(x - m).sum(-1)) + m[..., 0]
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * (x - lse[..., None]).exp()
+
+
+def logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp(x, -1)``, bit for bit, of a plain tensor or a
+    DTensor (without gathering the dim)."""
+    return _LogSumExp.apply(x)
+
+
+def onehot_like(labels: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``labels[..., None] == arange(V)`` in x's dtype, the (..., V)
+    one-hot of x's last dim, laid out as x when x is a DTensor: each rank
+    compares its block of the labels with its block of the vocabulary,
+    so no rank makes the whole one-hot (DTensor's rule for ``==`` can
+    broadcast the vocabulary whole: on the (16, 16) mesh, 16.5 GB a
+    device for olmo-1b's train_4k on torch 2.11, 13.6 GB for
+    moonshot's on 2.13)."""
+    def onehot(lab, vocab):
+        return (lab[..., None].long() == vocab).to(x.dtype)
+
+    vocab = torch.arange(x.shape[-1], device=x.device)
+    if not is_dtensor(x):
+        return onehot(labels, vocab)
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+    last = x.dim() - 1
+    splits_v = [isinstance(p, Shard) and p.dim == last for p in x.placements]
+    lab = tuple(Replicate() if s else p
+                for s, p in zip(splits_v, x.placements))
+    voc = tuple(Shard(0) if s else Replicate() for s in splits_v)
+    vocab = distribute_tensor(vocab, x.device_mesh, voc, src_data_rank=None)
+    return local_map(onehot, out_placements=(x.placements,),
+                     in_placements=(lab, voc), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(labels, vocab)
+
+
+def gathered(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor whole on every rank (FSDP's all-gather of a weight before
+    its use); a plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return t.redistribute(t.device_mesh, (Replicate(),) * t.device_mesh.ndim)
+
+
 def on_blocks(fn, placements: tuple, *ts: torch.Tensor, n_out: int = 1):
     """``fn`` on each rank's local blocks of the DTensors ``ts``, each
     first redistributed to ``placements``: for an op that is local on
     that layout (attention on blocks of batch and heads, a top-k on
     blocks of rows). The ``n_out`` outputs are DTensors of the same
     placements (``torch.distributed.tensor.experimental.local_map``;
-    gradients flow back block for block)."""
+    gradients flow back block for block).
+
+    Each block's gradient leaves ``fn`` contiguous. An einsum's backward
+    hands a block a strided gradient (attention's q: batch, head_dim,
+    sequence in memory); where a mesh dimension leaves a block one row of
+    a dimension (one head a rank), that row's stride says nothing, and
+    DTensor's reshape of the gradient, planned on the global strides it
+    infers from the block's, takes a view the block cannot give (the
+    backward of ``(x @ wq).reshape(B, S, H, hd)`` and of the product
+    before it)."""
     from torch.distributed.tensor.experimental import local_map
     mesh = ts[0].device_mesh
-    return local_map(fn, out_placements=(placements,) * n_out,
+
+    def dense(*blocks):
+        return fn(*(_DenseGrad.apply(b) if b.requires_grad else b
+                    for b in blocks))
+
+    return local_map(dense, out_placements=(placements,) * n_out,
                      in_placements=(placements,) * len(ts),
                      device_mesh=mesh, redistribute_inputs=True)(*ts)
 
@@ -409,6 +566,28 @@ def write_slot(cache: torch.Tensor, slot: int, value: torch.Tensor):
         cache.to_local()[:, slot - offset[1]] = local.to(cache.dtype)
 
 
+def unflatten(x: torch.Tensor, dim: int, sizes) -> torch.Tensor:
+    """``x.reshape`` with dimension ``dim`` split into ``sizes`` (a
+    projection into heads, heads into KV groups). DTensor splits a
+    dimension only where its shards hold whole rows of ``sizes[0]``: on a
+    DTensor, a mesh dimension that shards ``dim`` and does not divide
+    ``sizes[0]`` (16 model ranks, 8 KV heads) gathers it first, as XLA
+    reshards such a reshape."""
+    dim = dim % x.dim()
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        pl, n = list(x.placements), 1
+        for i, p in enumerate(pl):
+            if isinstance(p, Shard) and p.dim == dim:
+                if sizes[0] % (n * x.device_mesh.size(i)):
+                    pl[i] = Replicate()
+                else:
+                    n *= x.device_mesh.size(i)
+        if tuple(pl) != tuple(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
 def splits(x: torch.Tensor, dim: int) -> bool:
     """Whether a mesh dimension shards the DTensor x's ``dim``."""
     from torch.distributed.tensor import Shard
@@ -417,8 +596,10 @@ def splits(x: torch.Tensor, dim: int) -> bool:
 
 def heads_placements(x: torch.Tensor) -> tuple:
     """``act_spec(mesh, "heads")``'s placements on x's mesh: (B, S, H, dh)
-    with the batch over the data axes and the heads over ``"model"``."""
-    return to_placements(act_spec(x.device_mesh, "heads"), x.device_mesh)
+    with the batch over the data axes and the heads over ``"model"``,
+    where they divide (``to_placements``)."""
+    return to_placements(act_spec(x.device_mesh, "heads"), x.device_mesh,
+                         x.shape)
 
 
 def rows_placements(x: torch.Tensor) -> tuple:
@@ -450,11 +631,12 @@ def by_rows(fn, x: torch.Tensor, *weights: torch.Tensor) -> torch.Tensor:
 
 
 def constrain(x, mesh, kind: str):
-    """``x`` redistributed to ``act_spec(mesh, kind)`` on a DeviceMesh;
-    with no mesh, or an abstract one, ``x``. Where the constraint cannot
-    apply (x is no DTensor, or the spec's rank is not x's) x comes back
-    unchanged, as JAX's ``constrain`` returns it, and the case is counted
-    in ``CONSTRAIN_MISSES``."""
+    """``x`` redistributed to ``act_spec(mesh, kind)`` on a DeviceMesh
+    (an axis that does not divide its dimension left whole,
+    ``to_placements``); with no mesh, or an abstract one, ``x``. Where
+    the constraint cannot apply (x is no DTensor, or the spec's rank is
+    not x's) x comes back unchanged, as JAX's ``constrain`` returns it,
+    and the case is counted in ``CONSTRAIN_MISSES``."""
     global CONSTRAIN_MISSES
     if not is_device_mesh(mesh):
         return x
@@ -462,7 +644,7 @@ def constrain(x, mesh, kind: str):
     if not is_dtensor(x) or (spec and len(spec) != x.dim()):
         CONSTRAIN_MISSES += 1
         return x
-    return x.redistribute(mesh, to_placements(spec, mesh))
+    return x.redistribute(mesh, to_placements(spec, mesh, x.shape))
 
 
 # ---------------------------------------------------------------------------

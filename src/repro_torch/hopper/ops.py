@@ -15,6 +15,12 @@ come, columns whole), then the wrapper runs on each rank's local tensors
 through ``torch.distributed.tensor.experimental.local_map``: the kernel
 on the card, the plain version only for CPU shards. A DTensor never
 reaches ``data_ptr``.
+
+A meta tensor (shapes and dtypes, no storage: the dry run's step traced
+on a fake mesh, ``launch.dryrun``) takes the kernel's path up to the
+launch: the same argument checks, outputs allocated as the kernel's
+(empty meta tensors of its shapes and dtypes), and no launch, so no
+count. This propagates shapes; it is not a fallback.
 """
 from __future__ import annotations
 
@@ -45,6 +51,11 @@ DEQUANT_MAX_C = 12288
 TOPK_MAX_C = 12288
 
 
+# where a wrapper accepts tensors: the plain version on the CPU, the
+# kernel on the card, the kernel's shapes without a launch on meta
+_DEVICES = ("cpu", "cuda", "meta")
+
+
 def reset_launches():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -56,7 +67,7 @@ def _check_pair(x: torch.Tensor, y: torch.Tensor, names: str):
                          f"{tuple(x.shape)} and {tuple(y.shape)}")
     if x.device != y.device:
         raise ValueError(f"{names} lie on {x.device} and {y.device}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in _DEVICES:
         raise ValueError(f"unsupported device {x.device}")
 
 
@@ -97,10 +108,10 @@ def _assign_launch(feats: torch.Tensor, centroids: torch.Tensor, threshold,
     min_d2 = torch.empty((S, B), dtype=torch.float32, device=dev)
     arg = torch.empty((S, B), dtype=torch.int32, device=dev)
     matched = torch.empty((S, B), dtype=torch.bool, device=dev)
-    if S * B:
-        if S > 65535:
-            raise ValueError(f"{name}: S = {S} exceeds the kernel's 65535 "
-                             f"blocks in z")
+    if S > 65535 and B:
+        raise ValueError(f"{name}: S = {S} exceeds the kernel's 65535 "
+                         f"blocks in z")
+    if S * B and dev.type == "cuda":
         t2 = (np.float32(np.inf) if threshold is None
               else np.float32(threshold) ** 2)          # squared in fp32
         # the in-launch merge's per-row keys and per-row-tile counters
@@ -152,7 +163,7 @@ def centroid_assign_stacked(feats: torch.Tensor, centroids: torch.Tensor,
                          f"{centroids.device}")
     if feats.device.type == "cpu":
         return ref.centroid_assign_stacked_ref(feats, centroids, threshold)
-    if feats.device.type != "cuda":
+    if feats.device.type not in _DEVICES:
         raise ValueError(f"unsupported device {feats.device}")
     return _assign_launch(feats, centroids, threshold,
                           "centroid_assign_stacked")
@@ -181,6 +192,8 @@ def _pixel_match_launch(a, b, lo, hi, threshold):
     dev = a.device
     match = torch.empty((Na,), dtype=torch.int32, device=dev)
     min_d = torch.empty((Na,), dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        return match, min_d
     n_split = _n_split(dev, Na, Nb)
     # the in-launch merge's per-row keys and counters (12 bytes a row)
     scratch = (torch.empty((12 * Na,), dtype=torch.uint8, device=dev)
@@ -207,7 +220,8 @@ def pixel_match(a: torch.Tensor, b: torch.Tensor, threshold):
     matches. The one-range case of ``pixel_match_ranges``: one launch."""
     _check_pair(a, b, "a/b")
     Na, Nb = a.shape[0], b.shape[0]
-    if a.device.type == "cpu" or Na == 0 or Nb == 0:
+    if a.device.type == "cpu" or (a.device.type == "cuda"
+                                  and (Na == 0 or Nb == 0)):
         return ref.pixel_match_ref(a, b, threshold)
     return _pixel_match_launch(a, b, None, None, threshold)
 
@@ -234,7 +248,7 @@ def pixel_match_ranges(a: torch.Tensor, b: torch.Tensor, lo: torch.Tensor,
             raise ValueError(f"{name} lies on {t.device}, a on {a.device}")
     if a.device.type == "cpu":
         return ref.pixel_match_ranges_ref(a, b, lo, hi, threshold)
-    if Na == 0 or Nb == 0:
+    if a.device.type == "cuda" and (Na == 0 or Nb == 0):
         return ref.pixel_match_ref(a, b, threshold)     # nothing to launch
     if not (lo.is_contiguous() and hi.is_contiguous()):
         raise ValueError("pixel_match_ranges: lo and hi must be contiguous")
@@ -271,7 +285,7 @@ def dequant_topk(q: torch.Tensor, scales: torch.Tensor, k: int, *,
         raise ValueError(f"q/scales lie on {q.device} and {scales.device}")
     if q.device.type == "cpu":
         return ref.dequant_topk_ref(q, scales, k, global_scale)
-    if q.device.type != "cuda":
+    if q.device.type not in _DEVICES:
         raise ValueError(f"unsupported device {q.device}")
     dev = q.device
     vals = torch.empty((M, k), dtype=torch.float32, device=dev)
@@ -289,6 +303,8 @@ def dequant_topk(q: torch.Tensor, scales: torch.Tensor, k: int, *,
         raise ValueError(f"dequant_topk: C={C} exceeds the kernel's "
                          f"{DEQUANT_MAX_C} columns (a row's key bytes in "
                          f"shared memory)")
+    if dev.type == "meta":
+        return vals, idx
     sg = float(np.float32(global_scale))
     err = build.load().dequant_topk_launch(
         q.data_ptr(), int(q.dtype == torch.int8), scales.data_ptr(), sg,
@@ -320,7 +336,7 @@ def topk(x: torch.Tensor, k: int):
         raise ValueError(f"topk takes float32, got {x.dtype}")
     if x.device.type == "cpu":
         return ref.topk_ref(x, k)
-    if x.device.type != "cuda":
+    if x.device.type not in _DEVICES:
         raise ValueError(f"unsupported device {x.device}")
     dev = x.device
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
@@ -333,6 +349,8 @@ def topk(x: torch.Tensor, k: int):
         raise ValueError(f"topk: C={C} exceeds the kernel's {TOPK_MAX_C} "
                          f"columns (a row's keys in 128 KB of shared "
                          f"memory)")
+    if dev.type == "meta":
+        return vals, idx
     err = build.load().topk_launch(x.data_ptr(), vals.data_ptr(),
                                    idx.data_ptr(), B, C, k, _stream(dev))
     _raise_on(err, "topk")
@@ -365,7 +383,7 @@ def motion_gate_frames(frames: torch.Tensor, bg: torch.Tensor, alpha,
                          f"{bg.device}")
     if frames.device.type == "cpu":
         return ref.motion_gate_frames_ref(frames, bg, alpha, threshold, tile)
-    if frames.device.type != "cuda":
+    if frames.device.type not in _DEVICES:
         raise ValueError(f"unsupported device {frames.device}")
     N, H, W = frames.shape[:3]
     ty, tx = H // tile, W // tile
@@ -387,6 +405,8 @@ def motion_gate_frames(frames: torch.Tensor, bg: torch.Tensor, alpha,
         raise ValueError(f"motion_gate: a frame of {H * W * 3} values "
                          f"exceeds the kernel's 32-bit offsets")
     new_bg = torch.empty_like(bg)
+    if dev.type == "meta":
+        return new_bg, tiles, hot
     err = build.load().motion_gate_launch(
         frames.data_ptr(), bg.data_ptr(), new_bg.data_ptr(),
         tiles.data_ptr(), hot.data_ptr(), N, H, W, tile,
@@ -443,7 +463,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{v.device}")
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
-    if q.device.type != "cuda":
+    if q.device.type not in _DEVICES:
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16) or not \
             q.dtype == k.dtype == v.dtype:
@@ -467,6 +487,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if B * H > 65535:
         raise ValueError(f"flash_attention: B*H = {B * H} exceeds the "
                          f"kernel's 65535 blocks in y")
+    if q.device.type == "meta":
+        return out
     scale = float(np.float32(1.0 / dh ** 0.5))
     err = build.load().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,

@@ -14,7 +14,9 @@ device and no process group (the JAX package's contract,
 - ``make_production_mesh`` is JAX's 256-device ``(16, 16)`` and
   512-device ``(2, 16, 16)`` mesh; ``make_abstract_mesh`` gives the same
   names and sizes without devices, which is all the sharding specs need
-  (``distributed.sharding``).
+  (``distributed.sharding``), and ``make_fake_mesh`` a ``DeviceMesh`` of
+  those sizes over a fake process group, on which the dry run traces
+  steps on meta tensors (``launch.dryrun``).
 - ``make_ingest_mesh`` is the 1-D ``("data",)`` ingest mesh. The JAX
   package builds a ``jax.sharding.Mesh`` over its devices; the port keeps
   the name and the shape: an ``IngestMesh`` is a list of
@@ -87,13 +89,20 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
 
 
+def production_shape(multi_pod: bool = False):
+    """(shape, axes) of the production mesh: (data=16, model=16), or
+    (pod=2, data=16, model=16) across two pods."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False):
     """Single pod: (data=16, model=16) = 256 devices. Multi-pod: (pod=2,
     data=16, model=16) = 512 devices, over CUDA cards. Raises with the
     visible card count where there are fewer (one card shows a one-rank
-    mesh only)."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    mesh only); ``make_fake_mesh`` traces these shapes without cards."""
+    shape, axes = production_shape(multi_pod)
     n = math.prod(shape)
     avail = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if avail < n:
@@ -103,6 +112,47 @@ def make_production_mesh(*, multi_pod: bool = False):
             f"make_abstract_mesh({shape}, {axes}) for its specs, or "
             f"make_mesh with a shape of {max(avail, 1)} devices")
     return make_mesh(shape, axes)
+
+
+_FAKE_MESHES = {}
+
+
+def make_fake_mesh(shape: Sequence[int], axes: Sequence[str]):
+    """A CUDA-typed ``DeviceMesh`` of ``shape`` over a fake process group
+    of ``prod(shape)`` ranks, this process being rank 0: for tracing a
+    step on meta tensors at a mesh size no machine here holds (the dry
+    run, ``launch.dryrun``). No card is needed and no collective moves
+    data; DTensor plans the collectives NCCL would run, all-to-all
+    included (a CPU-typed mesh would plan all-gathers in its place).
+
+    Starts the group when none exists. A fake group of another size is
+    destroyed and started anew (a group's world size is fixed), which
+    ends every mesh made on it; a real group raises. The caller ends the
+    group with ``torch.distributed.destroy_process_group()``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"{len(shape)} sizes for axes {axes}")
+    n = math.prod(shape)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise ValueError(
+                f"make_fake_mesh needs a fake process group, and a "
+                f"{dist.get_backend()!r} group exists: end it first "
+                f"(torch.distributed.destroy_process_group())")
+        if dist.get_world_size() != n:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        _FAKE_MESHES.clear()
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+    if (shape, axes) not in _FAKE_MESHES:
+        _FAKE_MESHES[shape, axes] = init_device_mesh(
+            "cuda", shape, mesh_dim_names=axes)
+    return _FAKE_MESHES[shape, axes]
 
 
 @dataclass(frozen=True)

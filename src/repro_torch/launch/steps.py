@@ -188,9 +188,13 @@ def _opt_state(p_shapes):
 def _key(seed: torch.Tensor) -> torch.Tensor:
     """``jax.random.wrap_key_data`` of a (2,) uint32 seed: the port's key
     holds the same two words in int64, on the CPU (the loop's rng); a
-    replicated DTensor seed is read from its local copy."""
+    replicated DTensor seed is read from its local copy. A meta seed (a
+    traced step, ``launch.dryrun``) gives a meta key: ``common.prng``
+    draws shapes from it and reads no bits."""
     if is_dtensor(seed):
         seed = seed.to_local()
+    if seed.is_meta:
+        return seed.to(torch.int64)
     return seed.cpu().to(torch.int64)
 
 

@@ -34,7 +34,8 @@ import torch.nn.functional as F
 from repro_torch.common import prng
 from repro_torch.common.config import DiTConfig
 from repro_torch.common.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import constrain, replicate_like
+from repro_torch.distributed.sharding import (constrain, gathered,
+                                              replicate_like)
 from repro_torch.models import layers as L
 
 
@@ -126,7 +127,8 @@ def forward(params: dict, latents: torch.Tensor, t: torch.Tensor,
     Returns (noise_pred, sigma_pred), each (B, h, w, C) fp32. A latent
     grid other than the config's resizes the pos table bilinearly (the
     higher-res cells). Under a ``mesh`` the residual stream is
-    constrained to ``"hidden"``, as in the JAX package."""
+    constrained to ``"hidden"``, as in the JAX package, and so is the
+    final layer's modulated input (the port's own, ROADMAP C23)."""
     dt = L.compute_dtype(cfg.dtype)
     B, h, w, C = latents.shape
     x = L.patch_embed(params["patch"], latents.to(dt), cfg.patch)
@@ -141,14 +143,19 @@ def forward(params: dict, latents: torch.Tensor, t: torch.Tensor,
     te = params["t_embed"]
     c = F.silu(timestep_embedding(t).to(dt) @ te["w1"] + te["b1"]) \
         @ te["w2"] + te["b2"]
-    c = c + params["label_embed"][labels.long()].to(dt)
+    # the (n_classes + 1, D) table and the labels whole before the lookup
+    # (FSDP's gather of the table; DTensor has no rule for a lookup into a
+    # split table, or with labels split over two mesh dims, on every
+    # torch): each rank then keeps its rows of the sum below
+    c = c + gathered(params["label_embed"])[gathered(labels).long()].to(dt)
     c_act = F.silu(c)
     x = L.run_layers(cfg, _layer, params, x, c_act, mesh)
 
     fin = params["final"]
     shift, scale = (c_act @ fin["adaln"]["w"] + fin["adaln"]["b"]).chunk(
         2, dim=-1)
-    x = _modulate(L.layernorm({}, x), shift, scale)
+    x = constrain(_modulate(L.layernorm({}, x), shift, scale), mesh,
+                  "hidden")
     x = x @ fin["w"] + fin["b"]                      # (B, N, 2*p*p*C)
 
     g = int(math.sqrt(N))

@@ -42,9 +42,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.common import prng
 from repro_torch.distributed.sharding import (by_rows, constrain,
+                                              gathered, grad_like,
                                               heads_placements, is_dtensor,
                                               on_blocks, replicate_like,
-                                              splits, write_slot)
+                                              rows_placements, splits,
+                                              unflatten, write_slot)
 from repro_torch.hopper import ops
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -263,9 +265,9 @@ def multihead_attention(params: dict, x: torch.Tensor, *, n_heads: int,
     B, S, D = x.shape
     hd = D // n_heads
     g = n_heads // n_kv_heads
-    q = (x @ params["wq"]).reshape(B, S, n_kv_heads * g, hd)
-    k = (x @ params["wk"]).reshape(B, S, n_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(B, S, n_kv_heads, hd)
+    q = unflatten(x @ params["wq"], -1, (n_kv_heads * g, hd))
+    k = unflatten(x @ params["wk"], -1, (n_kv_heads, hd))
+    v = unflatten(x @ params["wv"], -1, (n_kv_heads, hd))
     if use_rope:
         if positions is None:
             positions = replicate_like(
@@ -363,9 +365,9 @@ def decode_attention(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
     g = n_heads // n_kv_heads
     S_max = cache_k.shape[1]
     cache_len = int(cache_len)
-    q = (x @ params["wq"]).reshape(B, 1, n_kv_heads * g, hd)
-    k = (x @ params["wk"]).reshape(B, 1, n_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(B, 1, n_kv_heads, hd)
+    q = unflatten(x @ params["wq"], -1, (n_kv_heads * g, hd))
+    k = unflatten(x @ params["wk"], -1, (n_kv_heads, hd))
+    v = unflatten(x @ params["wv"], -1, (n_kv_heads, hd))
     if use_rope:
         pos = replicate_like(torch.full((B, 1), cache_len, dtype=torch.int32,
                                         device=x.device), x)
@@ -373,7 +375,7 @@ def decode_attention(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
         k = apply_rope(k, pos, theta)
     write_slot(cache_k, cache_len, k[:, 0])
     write_slot(cache_v, cache_len, v[:, 0])
-    q = q.reshape(B, 1, n_kv_heads, g, hd)
+    q = unflatten(q, 2, (n_kv_heads, g))
 
     def attend(q, cache_k, cache_v):
         scores = torch.einsum("bqkgd,bskd->bkgqs", q.float(),
@@ -482,7 +484,10 @@ def moe_route(gate: torch.Tensor, xg: torch.Tensor, top_k: int,
     before choice 1, and so on; ``within`` is the choice's position in
     its expert's buffer, ``keep`` = ``within < capacity``."""
     G, gs, _ = xg.shape
-    logits = torch.matmul(xg.float(), gate)
+    # the (D, E) router weight whole (FSDP's gather), so that the product
+    # keeps the groups' layout (DTensor would otherwise split the tokens
+    # to meet the weight's d_model split, and cannot fold them back)
+    logits = torch.matmul(xg.float(), gathered(gate))
     probs = torch.softmax(logits, dim=-1)
     E = probs.shape[-1]
     _, idx = ops.topk(probs.detach().reshape(G * gs, E), top_k)
@@ -501,6 +506,18 @@ def moe_route(gate: torch.Tensor, xg: torch.Tensor, top_k: int,
     within = pos.reshape(G, top_k, gs).transpose(1, 2).long()
     keep = within < capacity
     return probs, idx, gate_vals * keep, within, keep
+
+
+def _slot_table(idx: torch.Tensor, c_ix: torch.Tensor, vals: torch.Tensor,
+                n_experts: int, capacity: int) -> torch.Tensor:
+    """(G, gs, E, C) zeros holding each token's choice values at (group,
+    token, its expert, its slot): GShard's dispatch or combine tensor;
+    idx, c_ix, vals (G, gs, k)."""
+    G, gs, _ = idx.shape
+    g_ix = torch.arange(G, device=idx.device)[:, None, None]
+    s_ix = torch.arange(gs, device=idx.device)[None, :, None]
+    return vals.new_zeros((G, gs, n_experts, capacity)).index_put(
+        (g_ix, s_ix, idx, c_ix), vals)
 
 
 def moe(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
@@ -527,30 +544,35 @@ def moe(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     and gathered back at ``min(within, C - 1)`` with their gate values.
     The expert products stay ``torch.einsum``, as the JAX package leaves
     them to XLA. Under a ``mesh`` the output is constrained to
-    ``out_kind``."""
+    ``out_kind``, and, the port's own (ROADMAP C23), the groups to
+    ``"groups"``, the expert buffers to ``"experts"`` and the experts'
+    outputs to ``"expert_groups"``: GShard's all-to-alls between them."""
     B, S, D = x.shape
     gs, G, C = moe_groups(B * S, group_size, top_k, capacity_factor,
                           n_experts)
-    xg = x.reshape(G, gs, D)
+    xg = constrain(unflatten(x.flatten(0, 1), 0, (G, gs)), mesh, "groups")
     probs, idx, gate_vals, within, keep = moe_route(params["gate"], xg,
                                                     top_k, C)
     me = probs.mean((0, 1))
     ce = F.one_hot(idx[..., 0], n_experts).float().mean((0, 1))
     aux = n_experts * (me * ce).sum()
 
-    g_ix = replicate_like(
-        torch.arange(G, device=x.device)[:, None, None], x)
     if dispatch == "einsum":
-        s_ix = replicate_like(
-            torch.arange(gs, device=x.device)[None, :, None], x)
         c_ix = within.clamp(max=C - 1)     # a dropped choice writes 0
-        at = (g_ix, s_ix, idx, c_ix)
-        disp = x.new_zeros((G, gs, n_experts, C)).index_put(
-            at, keep.to(x.dtype))
-        comb = x.new_zeros((G, gs, n_experts, C)).index_put(
-            at, gate_vals.to(x.dtype))
+
+        def table(vals):
+            # on a mesh each rank writes its own block of groups
+            fn = lambda i, c, v: _slot_table(i, c, v, n_experts, C)
+            if is_dtensor(idx):
+                return on_blocks(fn, rows_placements(idx), idx, c_ix, vals)
+            return fn(idx, c_ix, vals)
+
+        disp = table(keep.to(x.dtype))
+        comb = table(gate_vals.to(x.dtype))
         exp_in = torch.einsum("gsec,gsd->egcd", disp, xg)
     elif dispatch == "scatter":
+        g_ix = replicate_like(
+            torch.arange(G, device=x.device)[:, None, None], x)
         c_ix = torch.where(keep, within, C)
         exp_in = x.new_zeros((n_experts, G, C + 1, D)).index_put(
             (idx, g_ix, c_ix), xg[:, :, None, :].expand(G, gs, top_k, D),
@@ -559,16 +581,22 @@ def moe(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
         raise ValueError(f"dispatch must be 'einsum' or 'scatter', got "
                          f"{dispatch!r}")
 
+    exp_in = constrain(exp_in, mesh, "experts")
     h = torch.einsum("egcd,edf->egcf", exp_in, params["wi"])
     hg = torch.einsum("egcd,edf->egcf", exp_in, params["wg"])
-    exp_out = torch.einsum("egcf,efd->egcd", F.silu(hg) * h, params["wo"])
+    exp_out = constrain(torch.einsum("egcf,efd->egcd", F.silu(hg) * h,
+                                     params["wo"]), mesh, "expert_groups")
 
     if dispatch == "einsum":
-        y = torch.einsum("egcd,gsec->gsd", exp_out, comb)
+        # laid out as the groups, its gradient too: the combine's backward
+        # then runs on the same blocks as its forward
+        y = grad_like(constrain(torch.einsum("egcd,gsec->gsd", exp_out,
+                                             comb), mesh, "groups"))
     else:
         picked = exp_out[idx, g_ix, within.clamp(max=C - 1)]
         y = (picked * gate_vals[..., None].to(x.dtype)).sum(2)
-    return constrain(y.reshape(B, S, D), mesh, out_kind), aux
+    return constrain(unflatten(y.flatten(0, 1), 0, (B, S)), mesh,
+                     out_kind), aux
 
 
 # ---------------------------------------------------------------------------
@@ -653,7 +681,14 @@ def resize_grid(grid: torch.Tensor, g_new: int) -> torch.Tensor:
     ``jax.image.resize(..., "bilinear")``: half-pixel centres, and a
     triangle kernel widened by the scale when it shrinks (``antialias``),
     which ``F.interpolate(mode="bilinear")`` does only with
-    ``antialias=True``."""
+    ``antialias=True``. A DTensor table is resized on each rank's block
+    of channels (the resize mixes no channels; DTensor has no rule for
+    it on every torch)."""
+    if is_dtensor(grid):
+        from torch.distributed.tensor import Replicate, Shard
+        pl = tuple(p if isinstance(p, Shard) and p.dim == 3 else Replicate()
+                   for p in grid.placements)
+        return on_blocks(lambda g: resize_grid(g, g_new), pl, grid)
     out = F.interpolate(grid.float().permute(0, 3, 1, 2),
                         size=(g_new, g_new), mode="bilinear",
                         align_corners=False, antialias=True)
@@ -687,7 +722,15 @@ def batchnorm(params: dict, state: dict, x: torch.Tensor, train: bool,
     in fp32; y is cast back to x's dtype."""
     xf = x.float()
     if train:
-        var, mean = torch.var_mean(xf, dim=(0, 1, 2), unbiased=False)
+        if is_dtensor(xf):
+            # the JAX package's two means (jnp.mean, jnp.var), which
+            # DTensor reduces over a sharded batch on every torch; plain
+            # tensors keep var_mean's one pass (the two means cost
+            # efficientnet-b7's training 20-43% on the card)
+            mean = xf.mean((0, 1, 2))
+            var = (xf - mean).square().mean((0, 1, 2))
+        else:
+            var, mean = torch.var_mean(xf, dim=(0, 1, 2), unbiased=False)
         new_state = {
             "mean": momentum * state["mean"] + (1 - momentum) * mean,
             "var": momentum * state["var"] + (1 - momentum) * var,

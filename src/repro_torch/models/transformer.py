@@ -40,8 +40,10 @@ import torch
 from repro_torch.common import prng
 from repro_torch.common.config import LMConfig
 from repro_torch.common.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import (constrain, is_dtensor,
-                                              mesh_shape, replicate_like)
+from repro_torch.distributed.sharding import (constrain, grad_like,
+                                              is_dtensor, logsumexp,
+                                              mesh_shape, onehot_like,
+                                              replicate_like)
 from repro_torch.models import layers as L
 
 
@@ -177,7 +179,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
     ``aux_loss`` is the sum of the MoE layers' load-balancing losses (0
     for a dense LM). ``last_logit_only`` (prefill serving): the vocab
     projection runs on the final position only. Under a ``mesh`` the
-    logits are constrained to ``"logits"`` (vocab over the model axis)."""
+    logits are constrained to ``"logits"`` (vocab over the model axis),
+    and the final norm's output to ``"hidden"`` (the port's own, ROADMAP
+    C23)."""
     dt = L.compute_dtype(cfg.dtype)
     S = tokens.shape[1]
     res_kind = _residual_kind(cfg, mesh, S)
@@ -194,7 +198,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
         return x
 
     x = L.run_layers(cfg, layer, params, x)
-    x = L.apply_norm(cfg.norm, params["final_ln"], x)
+    # the sequence whole before the vocab product, as its "logits" layout
+    # holds it (a sequence-parallel stream is gathered here)
+    x = constrain(L.apply_norm(cfg.norm, params["final_ln"], x), mesh,
+                  "hidden")
     if last_logit_only:
         x = x[:, -1:, :]
     aux = (torch.stack(auxs).sum() if cfg.moe else replicate_like(
@@ -248,17 +255,19 @@ def loss_fn(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
 
     The JAX package picks each label's logit by contracting a one-hot
     over V, so that a vocabulary sharded over its "model" axis is not
-    all-gathered; under a ``mesh`` the port contracts it too. Without
-    one a gather picks the same number (the one-hot sum adds only zeros
-    to it, for finite logits) and saves the (B, S, V) fp32 one-hot: 3.3
-    GB at 8 x 2048 tokens of olmo-1b (ROADMAP C18)."""
+    all-gathered; under a ``mesh`` the port contracts it too, against a
+    one-hot laid out as the logits (``sharding.onehot_like``), whose
+    products take their gradient laid out as themselves
+    (``sharding.grad_like``: a sum's gradient is a whole (B, S, V)
+    tensor on every rank), and ``sharding.logsumexp`` keeps the
+    vocabulary sharded too (ROADMAP C23). Without one a gather picks the
+    same number (the one-hot sum adds only zeros to it, for finite
+    logits) and saves the (B, S, V) fp32 one-hot: 3.3 GB at 8 x 2048
+    tokens of olmo-1b (ROADMAP C18)."""
     logits, aux = forward(params, tokens, cfg, mesh=mesh)
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = logsumexp(logits)
     if is_dtensor(logits):
-        vocab = replicate_like(torch.arange(
-            logits.shape[-1], device=logits.device), logits)
-        onehot = (labels[..., None].long() == vocab).to(logits.dtype)
-        picked = (logits * onehot).sum(-1)
+        picked = grad_like(logits * onehot_like(labels, logits)).sum(-1)
     else:
         picked = logits.gather(-1, labels[..., None].long())[..., 0]
     nll = (lse - picked).mean()

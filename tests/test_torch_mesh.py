@@ -26,6 +26,9 @@ host devices gives what needs more than one JAX device: the blocks
   in ``m``, 2**-6 in ``v``): the sharded and unsharded fp32 gradients
   sum in other orders (~1e-7 relative), and a value that close to a
   bf16 rounding midpoint rounds to either side.
+- The same train step (f32, d_model 256 in 4 heads of 64, one step) on
+  a (1, 4) mesh of the same 4 ranks, one head on each model rank:
+  within 1e-5 of the unsharded port step and of JAX's (ROADMAP C19).
 - Reduced moonshot's forward on the mesh, on tokens whose router top-k
   margin is at least 1e-4 in every layer (ROADMAP C14): every layer's
   choices equal the unsharded model's, and the logits are within 1e-5
@@ -78,6 +81,8 @@ MARGIN = 1e-4
 CHOOSE = [(n, mp, pods) for n in range(1, 5) for mp in (1, 2, 4)
           for pods in (1, 2)]
 ATOL = 1e-5
+# one query head a rank on a (1, 4) mesh, at head_dim 64 (ROADMAP C19)
+HEAD_A_RANK = {"d_model": 256, "n_heads": 4, "n_kv_heads": 4}
 # decode cases: (name, config changes, cell, window, batch, cache slots,
 # tokens) and the cache spec _cache_sharding gives each on the (2, 2)
 # mesh: KV heads over "model"; one KV head, so the sequence over "model"
@@ -117,11 +122,13 @@ def _vit_batch(cfg, seed=0):
                                                   np.int32))}
 
 
-def _lm_train_spec(grad_dtype, mesh=None):
-    """(cfg, cell, the built step) of reduced olmo-1b's train_4k."""
+def _lm_train_spec(grad_dtype, mesh=None, **over):
+    """(cfg, cell, the built step) of reduced olmo-1b's train_4k (``over``
+    changes the config)."""
     from repro_torch.configs import get_shapes
     from repro_torch.launch import steps as ST
-    cfg = _cfg("olmo-1b", train_microbatches=2, grad_reduce_dtype=grad_dtype)
+    cfg = _cfg("olmo-1b", train_microbatches=2, grad_reduce_dtype=grad_dtype,
+               **over)
     cell = dataclasses.replace(get_shapes("olmo-1b")["train_4k"],
                                global_batch=TRAIN_B, seq_len=TRAIN_S)
     return cfg, cell, ST.build_lm(cfg, cell, mesh)
@@ -360,6 +367,16 @@ def rank_main(rank, store_path, out_dir):
                                    _lm_batch(cfg)), f"train/{gd}"))
     times["lm_train"] = time.perf_counter() - t0
 
+    # one query head a rank: a (1, 4) mesh over the same ranks
+    t0 = time.perf_counter()
+    cfg, _, spec = _lm_train_spec("f32", make_mesh((1, WORLD), AXES,
+                                                   device="cpu"),
+                                  **HEAD_A_RANK)
+    out.update(_flat(run_train(spec, T.init(cfg, 0, "cpu"),
+                               _lm_batch(cfg), n_steps=1),
+                     "train/head_a_rank"))
+    times["lm_train_head_a_rank"] = time.perf_counter() - t0
+
     # moonshot's forward: routing and logits
     t0 = time.perf_counter()
     cfg = _cfg("moonshot-v1-16b-a3b")
@@ -519,10 +536,10 @@ def _jax_devices_run():
         stderr=subprocess.PIPE, text=True)
 
 
-def _jax_train(arch, cfg, cell, batch, params, steps=2):
+def _jax_train(arch, cfg, cell, batch, params, steps=2, **changes):
     """JAX's built train step of ``arch`` (olmo-1b or vit-s16: its reduced
-    fp32 config, the LM's with ``cfg``'s micro-batches and reduce dtype,
-    on a (1, 1) mesh) from the
+    fp32 config with ``changes``, the LM's with ``cfg``'s micro-batches
+    and reduce dtype, on a (1, 1) mesh) from the
     same weights, as ``run_train`` reports it (without ``after``)."""
     import jax
     import jax.numpy as jnp
@@ -535,7 +552,7 @@ def _jax_train(arch, cfg, cell, batch, params, steps=2):
     lm = arch == "olmo-1b"
     over = ({"train_microbatches": cfg.train_microbatches,
              "grad_reduce_dtype": cfg.grad_reduce_dtype} if lm else {})
-    jcfg = jreduced(jget_arch(arch), dtype="float32", **over)
+    jcfg = jreduced(jget_arch(arch), dtype="float32", **over, **changes)
     build = JST.build_lm if lm else JST.build_vit
     fn = jax.jit(build(jcfg, cell, jmake_mesh((1, 1), AXES)).fn)
     jp = jax.tree.map(jnp.asarray, L.tree_to_jax(params))
@@ -595,6 +612,11 @@ def ranks(tmp_path_factory):
             refs[f"jax/{gd}"] = _jax_train("olmo-1b", cfg, cell, batch,
                                            params)
             refs[f"port/{gd}"] = run_train(spec, params, batch)
+        cfg, cell, spec = _lm_train_spec("f32", **HEAD_A_RANK)
+        params, batch = T.init(cfg, 0, "cpu"), _lm_batch(cfg)
+        refs["jax/head_a_rank"] = _jax_train("olmo-1b", cfg, cell, batch,
+                                             params, steps=1, **HEAD_A_RANK)
+        refs["port/head_a_rank"] = run_train(spec, params, batch, n_steps=1)
         cfg, cell, spec = _vit_train_spec()
         params, batch = V.init(cfg, 0, "cpu"), _vit_batch(cfg)
         refs["jax/vit"] = _jax_train("vit-s16", cfg, cell, batch, params,
@@ -682,6 +704,20 @@ def test_lm_train_step_on_the_mesh(ranks, gd):
         _same_step(got, port, f"{gd} vs unsharded", bf16=gd == "bf16")
         _same_step(got, refs[f"jax/{gd}"], f"{gd} vs JAX",
                    bf16=gd == "bf16")
+
+
+def test_lm_train_step_one_head_a_rank(ranks):
+    """Reduced olmo-1b's train step (d_model 256, 4 heads) on a (1, 4)
+    mesh, one head on each model rank: its backward views the heads'
+    gradient back into the projections' (ROADMAP C19). Within 1e-5 of
+    the unsharded port step and of JAX's, by ``_same_step``'s rule."""
+    npz, _, refs, _ = ranks
+    port = refs["port/head_a_rank"]
+    for z in npz:
+        got = dict(_unflat(z, "train/head_a_rank", n_steps=1),
+                   after=port["after"])
+        _same_step(got, port, "one head a rank vs unsharded")
+        _same_step(got, refs["jax/head_a_rank"], "one head a rank vs JAX")
 
 
 def test_moe_forward_routes_as_unsharded(ranks):
