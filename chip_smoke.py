@@ -248,6 +248,8 @@ choice, slots, capacity cut) identical between two runs wherever the
 router's smallest top-k margin exceeds the two runs' difference in
 router probabilities.
 """
+# focuslint: disable-file=host-sync -- a measurement script: it synchronises
+# the card around every timed region and reads every result back to check it
 from __future__ import annotations
 
 import contextlib
@@ -3918,8 +3920,12 @@ GATE_LONG_FRAMES = 3600
 # the dry run's cells on the card's torch: (arch, cells), each on both
 # production meshes
 DRYRUN_CELLS = (("olmo-1b", "train_4k,prefill_32k"),
-                ("moonshot-v1-16b-a3b", "prefill_32k"),
+                ("moonshot-v1-16b-a3b", "prefill_32k,train_4k"),
                 ("vit-l16", "cls_224"))
+# the MoE train cell whose wire bytes by model line are printed: the
+# experts' output moved as a reduce-scatter then an all-to-all (ROADMAP
+# C24), as this machine's torch plans it
+DRYRUN_WIRE_CELL = ("moonshot-v1-16b-a3b", "train_4k")
 DRYRUN_TIMEOUT_S = 240
 
 
@@ -4116,8 +4122,16 @@ def dryrun_stop(procs):
 def dryrun_finish(procs, out_dir, t_start):
     """Waits for the dry run, prints each record's summary line, and
     fails on any record that is not ``ok`` or traced no FLOP, and on a
-    MoE cell that planned no all-to-all."""
+    MoE cell that planned no all-to-all. For ``DRYRUN_WIRE_CELL`` it
+    prints the record's largest wire bytes by model line, the experts'
+    output line marked."""
+    import inspect
     from repro_torch.launch.dryrun import summary
+    from repro_torch.models import layers
+    src, start = inspect.getsourcelines(layers.moe)
+    line = start + next(i for i, text in enumerate(src)
+                        if "exp_out = constrain(exp_out" in text)
+    experts_site = f"models/layers.py:{line}"
     try:
         deadline = time.perf_counter() + DRYRUN_TIMEOUT_S
         logs = [p.communicate(timeout=max(1.0, deadline
@@ -4142,6 +4156,13 @@ def dryrun_finish(procs, out_dir, t_start):
         if rec["arch"].startswith("moonshot"):
             check(rec["collectives"]["counts"]["all-to-all"] > 0,
                   f"dry run of {f} planned no all-to-all")
+        if (rec["arch"], rec["cell"]) == DRYRUN_WIRE_CELL:
+            for w in rec["scanned_raw"]["wire_by_site"][:6]:
+                mark = " <- experts' output" if w["site"] == experts_site \
+                    else ""
+                print(f"[dryrun] {rec['arch']} x {rec['cell']} x {tag} "
+                      f"wire {w['site']} {w['kind']} k={w['group']} "
+                      f"{w['wire_bytes'] / 1e9:.4f} GB{mark}", flush=True)
         recs.append({
             "arch": rec["arch"], "cell": rec["cell"], "mesh": tag,
             "trace_s": rec["compile_s"],

@@ -347,8 +347,9 @@ class LazyShardIndex:
                         self.device)
                 _, ids = hops.dequant_topk(q_t, s_t, min(self.K, C),
                                            global_scale=PROB_GLOBAL_SCALE)
-                # the one host fetch per residency: rank ids are cached for
-                # the shard's resident lifetime
+                # focuslint: disable=host-sync -- designed once-per-shard
+                # boundary: the one host fetch per residency; rank ids are
+                # cached for the shard's resident lifetime
                 self._topk_ids = ids.cpu().numpy()
         return self._topk_ids
 
@@ -366,6 +367,8 @@ class LazyShardIndex:
             return []
         kx = min(Kx, ids.shape[1])
         rows = np.nonzero((ids[:, :kx] == local).any(axis=1))[0]
+        # focuslint: disable=host-sync -- a numpy array's .tolist(): host
+        # rows, no device fetch
         return self.store._row_cids64()[rows].tolist()
 
     def frames_of(self, cids: Sequence[int]) -> np.ndarray:

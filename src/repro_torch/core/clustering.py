@@ -146,7 +146,9 @@ def cluster_batched(state: ClusterState, feats, threshold: float):
         return state, torch.zeros((0,), dtype=torch.int32,
                                   device=feats.device)
     j, matched = _phase1(state, feats, threshold)
-    matched_np = matched.cpu().numpy()       # which branch each row takes
+    # focuslint: disable=host-sync -- the designed per-batch fetch of the
+    # staged path: matched decides which branch each row takes
+    matched_np = matched.cpu().numpy()
     scan = _Scan(state, threshold)
     ids = []
     for f, jj, m in zip(feats, j.long(), matched_np):
@@ -319,9 +321,11 @@ def cluster_fused(state: ClusterState, feats, threshold: float):
     if len(feats) == 0:
         return state, torch.zeros((0,), dtype=torch.int32, device=dev)
     j, matched = _phase1(state, feats, threshold)
-    # the one designed per-batch fetch: (j, matched) decide which rows the
-    # fold and the sequential rule touch
+    # focuslint: disable=host-sync -- the one designed per-batch fetch:
+    # (j, matched) decide which rows the fold and the sequential rule touch
     j_np = j.cpu().numpy()
+    # focuslint: disable=host-sync -- the same fetch's second copy: j and
+    # matched could come back in one (ROADMAP, syncs kept for later)
     matched_np = matched.cpu().numpy()
     state = _fold_matched(state, feats, j_np, matched_np)
 
@@ -335,6 +339,8 @@ def cluster_fused(state: ClusterState, feats, threshold: float):
         sub = feats[torch.from_numpy(gather).to(dev)]
         valid = torch.from_numpy(np.arange(P) < U).to(dev)
         state, sub_ids = _scan_unmatched(state, sub, valid, threshold)
+        # focuslint: disable=host-sync -- same designed sync boundary:
+        # winner ids feed the host-side fold
         ids[unmatched_idx] = sub_ids.cpu().numpy()[:U]
     return state, torch.from_numpy(ids).to(dev)
 

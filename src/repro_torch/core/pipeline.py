@@ -142,6 +142,8 @@ def staged_cheap_apply(forward: Callable, cfg,
     tail would run the CNN at another shape)."""
     dev = resolve_device(device)
 
+    # focuslint: disable=host-sync -- staged boundary by contract: apply
+    # returns host arrays; the fused pipeline is the async path
     def apply(crops: np.ndarray):
         n = len(crops)
         if n == 0:
@@ -409,8 +411,10 @@ class IngestPipeline:
         not double-counted."""
         ing = self._ing
         t0 = time.perf_counter()
-        # the one per-batch fetch: (j, matched), queued with the batch
         if rec.ready is not None:
+            # focuslint: disable=host-sync -- the one per-batch fetch: (j,
+            # matched), queued with the batch; the double-buffered dispatch
+            # has already overlapped this batch's compute
             rec.ready.synchronize()
         _, _, j, matched, _, _ = rec.host
         rec.j, rec.matched = j.numpy(), matched.numpy()
@@ -447,6 +451,8 @@ class IngestPipeline:
             self._fold(rec)
             t0 = time.perf_counter()
             ing._evict_live()
+            # focuslint: disable=host-sync -- rare eviction path; the remap
+            # must land before the next dispatch
             self._n_hi = int(ing._state.n)
             ing.stats.wall_s += time.perf_counter() - t0
             return
@@ -463,6 +469,9 @@ class IngestPipeline:
         ing = self._ing
         t0 = time.perf_counter()
         if rec.ready is not None:
+            # focuslint: disable=host-sync -- designed fold boundary: the
+            # batch's fold rows, queued with it (landed already when
+            # _resolve waited on the same event)
             rec.ready.synchronize()
         probs, feats, _, _, vals, idxs = rec.host
         slots = rec.j.astype(np.int32)
@@ -697,6 +706,8 @@ class ShardedIngestPipeline:
         tails: Dict[int, np.ndarray] = {}
         for st in steps:
             if st.ready is not None:
+                # focuslint: disable=host-sync -- the ONE designed per-step
+                # (j, matched) fetch: a block's whole stack behind one event
                 st.ready.synchronize()
             state = self._states[st.block.index]
             j_all, m_all = st.host[2].numpy(), st.host[3].numpy()
@@ -740,6 +751,9 @@ class ShardedIngestPipeline:
             h, crops, objs, frames = parts[slot]
             st, a = step_of[slot]
             if st.ready is not None:
+                # focuslint: disable=host-sync -- designed fold boundary:
+                # the slot's fold rows; landed already after the tail's
+                # wait on the block's event
                 st.ready.synchronize()
             probs, feats, j, _, vals, idxs = st.host
             n = len(objs)

@@ -43,6 +43,8 @@ def match_flat(a: np.ndarray, b: np.ndarray, threshold: float,
     at = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
     bt = torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(dev)
     m, _ = ops.pixel_match(at, bt, threshold)
+    # focuslint: disable=host-sync -- gate decision is consumed by host
+    # control flow; match_flat returns numpy by contract
     return m.cpu().numpy().astype(np.int64)
 
 
@@ -63,6 +65,8 @@ def match_ranges(rows: np.ndarray, n_ref: int, lo: np.ndarray,
     bounds = torch.from_numpy(np.stack([lo, hi]).astype(np.int32)).to(dev)
     m, _ = ops.pixel_match_ranges(bt[n_ref:], bt, bounds[0], bounds[1],
                                   threshold)
+    # focuslint: disable=host-sync -- the tracker's matches, one read per
+    # window; match_ranges returns numpy by contract
     return m.cpu().numpy().astype(np.int64)
 
 
@@ -161,6 +165,8 @@ class BackgroundSubtractor:
         (ty, tx) hot mask on the host."""
         self._bg, _, hot = ops.motion_gate(f, self._bg, self.alpha,
                                            self.threshold, tile=self.tile)
+        # focuslint: disable=host-sync -- per-frame gate: hot tiles feed
+        # host connected-components
         return hot.cpu().numpy()
 
     def _steps(self, fw: torch.Tensor) -> np.ndarray:
@@ -168,6 +174,8 @@ class BackgroundSubtractor:
         returns the (n, ty, tx) hot masks on the host in one copy."""
         self._bg, _, hot = ops.motion_gate_frames(
             fw, self._bg, self.alpha, self.threshold, tile=self.tile)
+        # focuslint: disable=host-sync -- the window's hot tiles feed host
+        # connected-components, one copy a window
         return hot.cpu().numpy()
 
     def _window(self, window: List[np.ndarray]) -> List[List[MotionBox]]:

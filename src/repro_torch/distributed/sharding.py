@@ -509,6 +509,26 @@ def gathered(t: torch.Tensor) -> torch.Tensor:
     return t.redistribute(t.device_mesh, (Replicate(),) * t.device_mesh.ndim)
 
 
+class _Whole(torch.autograd.Function):
+    """``gathered`` whose gradient is made whole too."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return gathered(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gathered(g)
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor whole on every rank, its gradient whole as well; a plain
+    tensor as it is. For a statistic reduced over a sharded dim (a
+    ``Partial(avg)`` mean), whose gradient DTensor cannot hand back as a
+    ``Partial(avg)`` (it arrives as a partial sum)."""
+    return _Whole.apply(t) if is_dtensor(t) else t
+
+
 def on_blocks(fn, placements: tuple, *ts: torch.Tensor, n_out: int = 1):
     """``fn`` on each rank's local blocks of the DTensors ``ts``, each
     first redistributed to ``placements``: for an op that is local on

@@ -30,8 +30,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: every pointer and the stream as void*, ints as int
 _SIGNATURES = {
-    "centroid_assign_launch": (_vp, _vp, _vp, _vp, _vp, _vp, _int, _int,
-                               _int, _float, _vp),
     "centroid_assign_stacked_launch": (_vp, _vp, _vp, _vp, _vp, _vp, _int,
                                        _int, _int, _int, _float, _vp),
     "centroid_assign_blocks": (_int, _int),

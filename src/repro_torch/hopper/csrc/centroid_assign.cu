@@ -265,16 +265,6 @@ extern "C" int centroid_assign_stacked_launch(
   return (int)cudaGetLastError();
 }
 
-// One slot: scratch holds B keys and ceil(B / 64) counters.
-extern "C" int centroid_assign_launch(const float* feats, const float* cents,
-                                      float* min_d2, int* argmin,
-                                      bool* matched, void* scratch, int B,
-                                      int M, int D, float t2, void* stream) {
-  return centroid_assign_stacked_launch(feats, cents, min_d2, argmin,
-                                        matched, scratch, 1, B, M, D, t2,
-                                        stream);
-}
-
 // The grid of one slot, for a caller's check that it fills the card.
 extern "C" int centroid_assign_blocks(int B, int M) {
   return ((M + kBN - 1) / kBN) * ((B + kBM - 1) / kBM);

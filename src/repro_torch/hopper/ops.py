@@ -436,6 +436,9 @@ def motion_gate(frame: torch.Tensor, bg: torch.Tensor, alpha, threshold, *,
     return new_bg, tiles[0], hot[0]
 
 
+# focuslint: disable=kernel-exact -- no bit-exact oracle exists: the
+# online-softmax tile accumulation reorders fp32 sums vs the dense ref;
+# pinned by assert_allclose at fp32 tolerances in test_torch_hopper_cuda
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q, k, v (B, S, H, dh) -> (B, S, H, dh): softmax attention with an

@@ -46,7 +46,7 @@ from repro_torch.distributed.sharding import (by_rows, constrain,
                                               heads_placements, is_dtensor,
                                               on_blocks, replicate_like,
                                               rows_placements, splits,
-                                              unflatten, write_slot)
+                                              unflatten, whole, write_slot)
 from repro_torch.hopper import ops
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -581,11 +581,18 @@ def moe(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
         raise ValueError(f"dispatch must be 'einsum' or 'scatter', got "
                          f"{dispatch!r}")
 
-    exp_in = constrain(exp_in, mesh, "experts")
+    # its gradient, partial over the data axes, likewise reduce-scattered
+    # to this layout before the all-to-all back to the groups
+    exp_in = grad_like(constrain(exp_in, mesh, "experts"))
     h = torch.einsum("egcd,edf->egcf", exp_in, params["wi"])
     hg = torch.einsum("egcd,edf->egcf", exp_in, params["wg"])
-    exp_out = constrain(torch.einsum("egcf,efd->egcd", F.silu(hg) * h,
-                                     params["wo"]), mesh, "expert_groups")
+    exp_out = torch.einsum("egcf,efd->egcd", F.silu(hg) * h, params["wo"])
+    # partial over the data axes where DTensor splits the contracted d_ff
+    # over them: reduce-scatter it onto the groups with the experts kept
+    # over "model", then the experts' all-to-all (ROADMAP C24; one move
+    # would reduce the whole product)
+    for kind in ("experts", "expert_groups"):
+        exp_out = constrain(exp_out, mesh, kind)
 
     if dispatch == "einsum":
         # laid out as the groups, its gradient too: the combine's backward
@@ -726,9 +733,12 @@ def batchnorm(params: dict, state: dict, x: torch.Tensor, train: bool,
             # the JAX package's two means (jnp.mean, jnp.var), which
             # DTensor reduces over a sharded batch on every torch; plain
             # tensors keep var_mean's one pass (the two means cost
-            # efficientnet-b7's training 20-43% on the card)
-            mean = xf.mean((0, 1, 2))
-            var = (xf - mean).square().mean((0, 1, 2))
+            # efficientnet-b7's training 20-43% on the card). Each mean
+            # is made whole before it meets x: torch 2.13's DTensor meets
+            # a partial mean by turning x's batch shard into a partial
+            # sum, a whole-batch block on every rank (ROADMAP C25)
+            mean = whole(xf.mean((0, 1, 2)))
+            var = whole((xf - mean).square().mean((0, 1, 2)))
         else:
             var, mean = torch.var_mean(xf, dim=(0, 1, 2), unbiased=False)
         new_state = {

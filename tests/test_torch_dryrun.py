@@ -21,6 +21,9 @@ host devices, which must never happen in a pytest worker.
   with the all-to-all NCCL would run.
 - F3 (C22): reduced dit-s2's train and sampler steps trace with meta
   latents and a meta seed.
+- C24: the MoE experts' output moves as a reduce-scatter then an
+  all-to-all, at the hand-counted bytes (reduced moonshot's train step
+  on an (8, 2) mesh).
 - On JAX's reduced 8-device cell (``tests/test_launch.py``: reduced
   olmo-1b, d_model 128, 4 heads, seq 128, batch 8, a (2, 2, 2) mesh) the
   port's per-device argument bytes are JAX's
@@ -65,6 +68,26 @@ def _reduced(arch, **over):
 def _cell(arch, name, **over):
     from repro_torch.configs import get_shapes
     return dataclasses.replace(get_shapes(arch)[name], **over)
+
+
+# C24's cell: reduced moonshot, one layer, one micro-batch (no remat),
+# d_model 256 and d_ff 1024, 512 tokens: 16 groups of 32, capacity 20
+C24_MESH = (8, 2)
+C24_CELL = {"global_batch": 8, "seq_len": 64}
+
+
+def _c24_cfg():
+    return dataclasses.replace(_reduced("moonshot-v1-16b-a3b"), n_layers=1,
+                               train_microbatches=1, d_model=256, d_ff=1024)
+
+
+def _experts_output_line() -> int:
+    """The line of ``layers.moe`` that moves the experts' output."""
+    import inspect
+    from repro_torch.models import layers
+    src, start = inspect.getsourcelines(layers.moe)
+    return start + next(i for i, text in enumerate(src)
+                        if "exp_out = constrain(exp_out" in text)
 
 
 def port_main():
@@ -124,6 +147,17 @@ def port_main():
     out["extrap_counts"] = [est["coll"]["counts"], direct["coll"]["counts"]]
     out["extrap_args"] = [est["memory"]["argument_size_in_bytes"],
                           direct["memory"]["argument_size_in_bytes"]]
+
+    # C24: the MoE experts' output, partial over "data", moved in two
+    # steps; on an (8, 2) mesh at these widths DTensor plans the wo
+    # product partial, as at full width (on 2 data ranks it gathers)
+    mesh = make_fake_mesh(C24_MESH, ("data", "model"))
+    rec = measure(_c24_cfg(), _cell("moonshot-v1-16b-a3b", "train_4k",
+                                    **C24_CELL), mesh)
+    line = _experts_output_line()
+    out["c24_site"] = sorted([kind, k, wire] for (site, kind, k), wire
+                             in rec["wire_by_site"].items()
+                             if site == f"models/layers.py:{line}")
 
     # JAX's reduced 8-device cell
     mesh = make_fake_mesh((2, 2, 2), ("pod", "data", "model"))
@@ -228,6 +262,30 @@ def test_f2_moe_steps_trace_and_plan_all_to_all(runs):
     port = runs[0]
     assert port["moe_prefill"]["all-to-all"] > 0
     assert port["launches_unchanged"]
+
+
+def test_c24_experts_output_is_a_reduce_scatter_then_an_all_to_all(runs):
+    """ROADMAP C24: the experts' product, partial over "data", goes to
+    the "experts" layout (a reduce-scatter onto the groups, the experts
+    kept over "model"), then to "expert_groups" (the experts' all-to-all
+    over "model"): no all-reduce at the site, and its wire bytes are the
+    hand count. Per device, the "experts" block is (E/2, G/8, C, D) bf16
+    and so is the "expert_groups" block (E, G/16, C, D); the ring model
+    sends k - 1 blocks for a reduce-scatter over k ranks and (k - 1)/k
+    of one for an all-to-all."""
+    from repro_torch.models.layers import moe_groups
+    cfg = _c24_cfg()
+    n_tok = C24_CELL["global_batch"] * C24_CELL["seq_len"]
+    gs, G, C = moe_groups(n_tok, cfg.moe_group_size, cfg.moe_top_k,
+                          cfg.moe_capacity_factor, cfg.n_experts)
+    assert (G, C) == (16, 20) and not cfg.remat
+    data, model = C24_MESH
+    block = (cfg.n_experts // model) * (G // data) * C * cfg.d_model * 2
+    assert block == cfg.n_experts * (G // (data * model)) * C * \
+        cfg.d_model * 2
+    want = [["all-to-all", model, block * (model - 1) / model],
+            ["reduce-scatter", data, block * (data - 1)]]
+    assert runs[0]["c24_site"] == want
 
 
 def test_f3_dit_steps_trace_with_meta_latents(runs):

@@ -152,6 +152,32 @@ def test_centroid_assign_stacked_kernel_equals_solo_launches(cuda, S, B, M,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,B,M,D", [(8, 512, 4096, 128),
+                                     (3, 130, 333, 128),
+                                     (2, 9, 300, 20)])
+def test_centroid_assign_stacked_kernel_matches_plain(cuda, S, B, M, D):
+    """The stacked launch against the stacked plain version on the same
+    inputs: argmin and matched equal, min_d2 within _assert_assign_eq's
+    tolerance, with and without a threshold; slot 0 is dead and the
+    tables hold ties across centroid tiles."""
+    r = np.random.default_rng(3 * S + B + M)
+    f = r.normal(size=(S, B, D)).astype(np.float32)
+    c = r.normal(size=(S, M, D)).astype(np.float32)
+    c[:, M // 2:2 * (M // 2)] = c[:, :M // 2]
+    c[0] = 1e9
+    T = float(np.sqrt(2 * D))
+    F, Cc = _t(f, cuda), _t(c, cuda)
+    _assert_assign_eq(ops.centroid_assign_stacked(F, Cc, threshold=T),
+                      ref.centroid_assign_stacked_ref(F, Cc, T))
+    d2, j = ops.centroid_assign_stacked(F, Cc)
+    d2r, jr = ref.centroid_assign_stacked_ref(F, Cc)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(j.cpu().numpy(), jr.cpu().numpy())
+    np.testing.assert_allclose(d2.cpu().numpy(), d2r.cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_sharded_runner_on_the_card_equals_solo_pipelines(cuda):
     """Three streams through one stacked pipeline on the card, with the
     full cheap1 CNN and tables small enough to evict: each saves its solo

@@ -40,6 +40,10 @@ host devices gives what needs more than one JAX device: the blocks
   window variant at batch 1, the sequence over both axes), its sharded
   KV cache written in place; dit-s2's sampler (2 steps) and
   efficientnet-b7's serve step.
+- Reduced efficientnet-b7's built ``cls_224`` train step (batch 4), one
+  step on the mesh: loss and batch-norm state within 1e-5 of the
+  unsharded step's, AdamW's moments (the gradients) within
+  ``chip_smoke.py``'s EfficientNet gradient bound (ROADMAP C25).
 - A reduced ViT's built ``cls_224`` train step (batch 4 at 32 px), one
   step on the mesh: loss, moments and changes as above, against the
   unsharded step and JAX's built step.
@@ -142,6 +146,39 @@ def _vit_train_spec(mesh=None):
     cell = dataclasses.replace(get_shapes("vit-s16")["cls_224"],
                                global_batch=VIT_B, img_res=cfg.img_res)
     return cfg, cell, ST.build_vit(cfg, cell, mesh)
+
+
+def effnet_train(mesh):
+    """Reduced efficientnet-b7's built cls_224 train step (fp32, batch
+    ``VIT_B``), one step on ``mesh`` and unsharded from the same weights,
+    state and images: the batch norm's statistics of a sharded batch
+    (ROADMAP C25). npz entries ``effnet_train/{mesh,unsharded}/<part>/<i>``
+    for the loss, every leaf of the new batch-norm state, and AdamW's
+    moments (the step's gradients, m = (1 - b1) g, v = (1 - b2) g^2)."""
+    from repro_torch.configs import get_shapes
+    from repro_torch.distributed.sharding import full_tensor, tree_paths
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import efficientnet as E
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import param_leaves
+    cfg = _cfg("efficientnet-b7")
+    cell = dataclasses.replace(get_shapes("efficientnet-b7")["cls_224"],
+                               global_batch=VIT_B, img_res=cfg.img_res)
+    batch = _vit_batch(cfg)
+    flat = {}
+    for m in (mesh, None):
+        params, state = E.init(cfg, 0, "cpu")
+        spec = ST.build_effnet(cfg, cell, m)
+        params, state, o, loss = spec.fn(
+            params, state, opt.init(param_leaves(params)), batch)
+        parts = {"loss": [loss], "state": state, "m": o["m"],
+                 "v": o["v"]}
+        for part, tree in parts.items():
+            outs = full_tensor([t for _, t in tree_paths(tree)])
+            for i, t in enumerate(outs):
+                flat[f"effnet_train/{'mesh' if m else 'unsharded'}/{part}/"
+                     f"{i}"] = t.double().numpy()
+    return flat
 
 
 def run_train(spec, params, batch, n_steps=2):
@@ -404,6 +441,11 @@ def rank_main(rank, store_path, out_dir):
     out.update(_flat(run_train(spec, V.init(cfg, 0, "cpu"), _vit_batch(cfg),
                                n_steps=1), "vit"))
     times["vit"] = time.perf_counter() - t0
+
+    # an EfficientNet train step: batch norm over a sharded batch
+    t0 = time.perf_counter()
+    out.update(effnet_train(mesh))
+    times["effnet_train"] = time.perf_counter() - t0
 
     # the train loop on the mesh: int8 error feedback, a sharded
     # checkpoint, and a resumed run
@@ -761,6 +803,38 @@ def test_vit_train_step_on_the_mesh(ranks):
         got = dict(_unflat(z, "vit", n_steps=1), after=refs["vit"]["after"])
         _same_step(got, refs["vit"], "vit vs unsharded")
         _same_step(got, refs["jax/vit"], "vit vs JAX")
+
+
+# EfficientNet's gradients, through training-mode batch norms summed in
+# another order: chip_smoke.py's bound for them (vision_card_vs_cpu), 5e-5
+# of each leaf's largest |grad|, and for the leaves whose gradient is zero
+# in exact arithmetic (the project batch norms' biases) 1e-5 of the
+# model's largest
+EFFNET_GRAD_TOL = 5e-5
+
+
+def test_effnet_train_step_on_the_mesh(ranks):
+    """Reduced efficientnet-b7's built train step on the mesh, with the
+    batch norm's means made whole before they meet the batch (ROADMAP
+    C25): the loss and the new batch-norm state within 1e-5 of the
+    unsharded step's largest |value| (the state: of all its leaves, as
+    ``chip_smoke.py`` holds it, whose near-zero running means of
+    normalised inputs are rounding), and AdamW's moments (the step's
+    gradients) within ``EFFNET_GRAD_TOL`` of each leaf's largest |value|
+    or 1e-5 of the model's, whichever is larger."""
+    for z in ranks[0]:
+        for part in ("loss", "state", "m", "v"):
+            keys = [k for k in z if k.startswith(
+                f"effnet_train/mesh/{part}/")]
+            assert keys
+            pairs = [(z[k], z[k.replace("/mesh/", "/unsharded/")], k)
+                     for k in keys]
+            model = max(np.abs(w).max() for _, w, _ in pairs)
+            for got, want, k in pairs:
+                tol = ATOL * model
+                if part in ("m", "v"):
+                    tol = max(EFFNET_GRAD_TOL * np.abs(want).max(), tol)
+                assert np.abs(got - want).max() <= tol, k
 
 
 @pytest.mark.parametrize("axis", ["data", "model"])
