@@ -176,11 +176,15 @@ Phases, each fatal on failure (no phase's failure is caught):
    bitwise the unsharded step's; moonshot at full width with 2 layers
    prefilling 1 x 2048 tokens with its experts on ``"model"``, ``topk``
    and ``flash_attention`` 2 launches each a call, routing and logits
-   equal to unsharded; ``compressed_psum`` over ``"data"`` on a (2048,
-   8192) fp32 tensor bitwise the int8 round trip, timed; the trained
-   state saved from the mesh, restored onto it and resharded onto
-   ``choose_mesh()``, every leaf bitwise on its placement; 0
-   ``constrain`` misses. One card shows a one-rank mesh only: the
+   equal to unsharded; moonshot's built train_4k step (batch 4 x 4096 in
+   4 micro-batches, one step; its experts' weights gathered over
+   ``"data"`` before their products, ROADMAP C26) on the mesh beside the
+   unsharded step, loss, AdamW moments and parameters bitwise equal,
+   ``topk`` through ``local_map`` 16 launches; ``compressed_psum`` over
+   ``"data"`` on a (2048, 8192) fp32 tensor bitwise the int8 round trip,
+   timed; the trained state saved from the mesh, restored onto it and
+   resharded onto ``choose_mesh()``, every leaf bitwise on its
+   placement; 0 ``constrain`` misses. One card shows a one-rank mesh only: the
    multi-rank semantics are ``tests/test_torch_mesh.py``'s (4 gloo
    ranks on the CPU).
    Then ``gate_tune_path``: ``launch.hillclimb.gate_tune`` (the
@@ -194,10 +198,14 @@ Phases, each fatal on failure (no phase's failure is caught):
    crops planted within 1% of the threshold. Then ``dryrun_path`` runs
    ``launch.dryrun`` in subprocesses on this torch:
    olmo-1b train_4k and prefill_32k, moonshot prefill_32k (its
-   all-to-all planned as NCCL would) and vit-l16 cls_224, each on the
-   (16, 16) and (2, 16, 16) fake meshes; each record's summary line is
-   printed, and any record not ``ok`` fails the smoke (the modelled
-   cluster's numbers, traced on the host: no kernel runs);
+   all-to-all planned as NCCL would) and train_4k, dbrx-132b train_4k
+   and vit-l16 cls_224, each on the (16, 16) and (2, 16, 16) fake meshes;
+   each record's summary line is printed, and any record not ``ok``
+   fails the smoke; for the two MoE train cells the wire bytes at the
+   lines of ``layers.moe`` (the experts' weights gathered, their output
+   moved), and none among the largest at the expert products (ROADMAP
+   C26) (the modelled cluster's numbers, traced on the host: no kernel
+   runs);
 4. card against CPU: the 120 s of frames through
    ``BackgroundSubtractor(device="cpu")`` give the card's boxes on every
    frame and its final background bit for bit; on a 60 s cut, spec1-spec3
@@ -334,8 +342,9 @@ STEPS_VISION_BATCH, STEPS_VISION_STEPS = 8, 3
 # The multi-card layer on a one-rank NCCL mesh (``mesh_path``): olmo-1b
 # and moonshot-v1-16b-a3b at full width cut to 2 layers; olmo-1b's built
 # train_4k at batch 2 for 2 steps and prefill_32k at batch 2 (the steps
-# path's cuts), moonshot prefilling 1 x 2048 tokens; compressed_psum on a
-# (2048, 8192) fp32 tensor
+# path's cuts), moonshot prefilling 1 x 2048 tokens and its train_4k at
+# batch STEPS_MOE_BATCH for one step; compressed_psum on a (2048, 8192)
+# fp32 tensor
 MESH_LAYERS, MESH_TRAIN_STEPS = 2, 2
 MESH_MOE_BATCH, MESH_MOE_SEQ = 1, 2048
 MESH_PSUM_SHAPE = (2048, 8192)
@@ -3692,7 +3701,12 @@ def mesh_path(ops, peaks):
       experts on ``"model"``: a built prefill of ``MESH_MOE_BATCH`` x
       ``MESH_MOE_SEQ`` tokens, ``topk`` and ``flash_attention`` once per
       layer a call, routing (choices, slots, capacity cut) and logits
-      equal to the unsharded call's;
+      equal to the unsharded call's; its built train_4k step (batch
+      ``STEPS_MOE_BATCH``, the config's micro-batches and remat), one
+      step on the mesh and unsharded from the same weights and batch,
+      the experts' weights gathered over "data" before their products
+      (ROADMAP C26): loss, AdamW's moments and the parameters bitwise
+      equal, ``topk`` once per layer, micro-batch and recompute;
     - ``compressed_psum`` over ``"data"`` on a ``MESH_PSUM_SHAPE`` fp32
       tensor: bitwise the int8 round trip at its own scale; timed;
     - the trained olmo-1b state saved from the mesh, restored onto it
@@ -3846,7 +3860,46 @@ def mesh_path(ops, peaks):
             "launches_per_call": n, "routes_equal": True,
             "logits_bitwise_equal": True, "s_mesh_calls": mesh_s,
             "s_unsharded_calls": plain_s}
-        del mparams, dparams, got, want, tokens, r_plain, r_mesh
+        del dparams, got, want, tokens, r_plain, r_mesh
+        torch.cuda.empty_cache()
+
+        # moonshot's train step: the experts' FSDP weights gathered
+        # before their products (ROADMAP C26), the router under DTensor
+        cell, tcut = _cut(LM_SHAPES["train_4k"],
+                          global_batch=STEPS_MOE_BATCH)
+        toks = _lm_tokens(mcfg, cell.global_batch, cell.seq_len + 1, 240,
+                          dev)
+        batches = [{"tokens": toks[:, :-1].contiguous(),
+                    "labels": toks[:, 1:].contiguous()}]
+        plain = _mesh_train(steps.build_lm(mcfg, cell), mparams, batches)
+        spec = steps.build_lm(mcfg, cell, mesh)
+        before = dict(ops.LAUNCHES)
+        sharded = _mesh_train(spec, mparams, batches, mesh)
+        n = _launches_since(ops, before)
+        per_step = MESH_LAYERS * mcfg.train_microbatches * (
+            2 if mcfg.remat else 1)
+        check(n == {**{k: 0 for k in n}, "topk": per_step},
+              f"{spec.name} on the mesh launched {n}, expected {per_step} "
+              f"topk")
+        bitwise = (plain[0] == sharded[0] and all(
+            torch.equal(a, b) for a, b in
+            zip(plain[2] + plain[3] + plain[4],
+                sharded[2] + sharded[3] + sharded[4])))
+        check(bitwise, f"{spec.name} on the mesh against unsharded: losses "
+              f"{sharded[0]} / {plain[0]}, largest parameter difference "
+              f"{_largest_diff(plain[2], sharded[2])}")
+        out["moe_train"] = {
+            "cell": spec.name,
+            "cut": dict(tcut, n_layers=[lm_config(arch).n_layers,
+                                        MESH_LAYERS]),
+            "microbatches": mcfg.train_microbatches, "remat": mcfg.remat,
+            "experts_spec": list(spec.in_shardings[0]["layers"]["moe"]
+                                 ["wi"]),
+            "launches_per_step": n, "bitwise_equal": True,
+            "losses_mesh": sharded[0], "losses_unsharded": plain[0],
+            "ms_per_step_mesh": [1e3 * w for w in sharded[1]],
+            "ms_per_step_unsharded": [1e3 * w for w in plain[1]]}
+        del mparams, plain, sharded, toks, batches
         torch.cuda.empty_cache()
 
         # compressed_psum over "data"
@@ -3921,11 +3974,14 @@ GATE_LONG_FRAMES = 3600
 # production meshes
 DRYRUN_CELLS = (("olmo-1b", "train_4k,prefill_32k"),
                 ("moonshot-v1-16b-a3b", "prefill_32k,train_4k"),
+                ("dbrx-132b", "train_4k"),
                 ("vit-l16", "cls_224"))
-# the MoE train cell whose wire bytes by model line are printed: the
-# experts' output moved as a reduce-scatter then an all-to-all (ROADMAP
-# C24), as this machine's torch plans it
-DRYRUN_WIRE_CELL = ("moonshot-v1-16b-a3b", "train_4k")
+# the MoE train cells whose wire bytes by model line are printed: the
+# experts' weights gathered over the data axes before their products
+# (ROADMAP C26), which move nothing, and their output moved by the
+# experts' all-to-all (C24), as this machine's torch plans them
+DRYRUN_WIRE_CELLS = (("moonshot-v1-16b-a3b", "train_4k"),
+                     ("dbrx-132b", "train_4k"))
 DRYRUN_TIMEOUT_S = 240
 
 
@@ -4122,16 +4178,23 @@ def dryrun_stop(procs):
 def dryrun_finish(procs, out_dir, t_start):
     """Waits for the dry run, prints each record's summary line, and
     fails on any record that is not ``ok`` or traced no FLOP, and on a
-    MoE cell that planned no all-to-all. For ``DRYRUN_WIRE_CELL`` it
-    prints the record's largest wire bytes by model line, the experts'
-    output line marked."""
+    MoE cell that planned no all-to-all. For ``DRYRUN_WIRE_CELLS`` it
+    prints the record's largest wire bytes by model line, the lines of
+    ``layers.moe`` marked, and fails where one of them is at the expert
+    products (ROADMAP C26)."""
     import inspect
     from repro_torch.launch.dryrun import summary
     from repro_torch.models import layers
     src, start = inspect.getsourcelines(layers.moe)
-    line = start + next(i for i, text in enumerate(src)
-                        if "exp_out = constrain(exp_out" in text)
-    experts_site = f"models/layers.py:{line}"
+
+    def site(text):
+        line = start + next(i for i, t in enumerate(src) if text in t)
+        return f"models/layers.py:{line}"
+    marks = {site("= (data_gathered(params[k])"): "experts' weights gathered",
+             site("exp_out = constrain(exp_out"): "experts' output"}
+    products = {site(t): "expert product" for t in (
+        "h = torch.einsum(", "hg = torch.einsum(", "F.silu(hg) * h")}
+    marks.update(products)
     try:
         deadline = time.perf_counter() + DRYRUN_TIMEOUT_S
         logs = [p.communicate(timeout=max(1.0, deadline
@@ -4156,13 +4219,17 @@ def dryrun_finish(procs, out_dir, t_start):
         if rec["arch"].startswith("moonshot"):
             check(rec["collectives"]["counts"]["all-to-all"] > 0,
                   f"dry run of {f} planned no all-to-all")
-        if (rec["arch"], rec["cell"]) == DRYRUN_WIRE_CELL:
-            for w in rec["scanned_raw"]["wire_by_site"][:6]:
-                mark = " <- experts' output" if w["site"] == experts_site \
+        if (rec["arch"], rec["cell"]) in DRYRUN_WIRE_CELLS:
+            for w in rec["scanned_raw"]["wire_by_site"]:
+                mark = f" <- {marks[w['site']]}" if w["site"] in marks \
                     else ""
                 print(f"[dryrun] {rec['arch']} x {rec['cell']} x {tag} "
                       f"wire {w['site']} {w['kind']} k={w['group']} "
                       f"{w['wire_bytes'] / 1e9:.4f} GB{mark}", flush=True)
+                check(w["site"] not in products,
+                      f"dry run of {f}: {w['kind']} of {w['wire_bytes']} "
+                      f"bytes at an expert product, {w['site']} (ROADMAP "
+                      f"C26)")
         recs.append({
             "arch": rec["arch"], "cell": rec["cell"], "mesh": tag,
             "trace_s": rec["compile_s"],

@@ -322,11 +322,11 @@ def cluster_fused(state: ClusterState, feats, threshold: float):
         return state, torch.zeros((0,), dtype=torch.int32, device=dev)
     j, matched = _phase1(state, feats, threshold)
     # focuslint: disable=host-sync -- the one designed per-batch fetch:
-    # (j, matched) decide which rows the fold and the sequential rule touch
-    j_np = j.cpu().numpy()
-    # focuslint: disable=host-sync -- the same fetch's second copy: j and
-    # matched could come back in one (ROADMAP, syncs kept for later)
-    matched_np = matched.cpu().numpy()
+    # (j, matched) decide which rows the fold and the sequential rule
+    # touch; packed into one tensor, one copy, as the reference's one
+    # device_get
+    host = torch.stack((j, matched.to(j.dtype))).cpu().numpy()
+    j_np, matched_np = host[0], host[1].astype(bool)
     state = _fold_matched(state, feats, j_np, matched_np)
 
     ids = j_np.astype(np.int32)

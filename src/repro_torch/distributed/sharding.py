@@ -529,6 +529,23 @@ def whole(t: torch.Tensor) -> torch.Tensor:
     return _Whole.apply(t) if is_dtensor(t) else t
 
 
+def data_gathered(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor weight whole over the mesh axes that split it for FSDP
+    (``"data"``, and ``"pod"`` where the mesh has it), every other
+    placement kept (an expert weight stays split over ``"model"``):
+    FSDP's all-gather before the weight's use, as XLA gathers it. The
+    redistribute's own backward hands the gradient, a partial sum over
+    those axes, back on the weight's placements: FSDP's reduce-scatter.
+    A plain tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    pl = tuple(Replicate() if name in ("pod", "data") else p
+               for name, p in zip(t.device_mesh.mesh_dim_names,
+                                  t.placements))
+    return t.redistribute(t.device_mesh, pl)
+
+
 def on_blocks(fn, placements: tuple, *ts: torch.Tensor, n_out: int = 1):
     """``fn`` on each rank's local blocks of the DTensors ``ts``, each
     first redistributed to ``placements``: for an op that is local on

@@ -50,7 +50,8 @@ The steps compute what the JAX package's do:
   length; ``long`` with full attention is skipped with the JAX package's
   reason, and ``build_lm_long_window`` builds its window variant;
 - DiT: training at the cell's resolution and ``dit.sample`` with the
-  cell's steps, the (2,) uint32 seed read as a ``common.prng`` key;
+  cell's steps, the (2,) uint32 seed, passed on the host, read as a
+  ``common.prng`` key;
 - ViT/DeiT and EfficientNet: training and serving (EfficientNet's train
   step returns the new batch-norm state; serving runs ``train=False``).
 """
@@ -161,17 +162,21 @@ def _opt_shardings(p_shard):
     return {"m": specs, "v": list(specs), "step": P()}
 
 
-def _spec(mesh, name, fn, args, in_sh, out_sh, donate=()):
+def _spec(mesh, name, fn, args, in_sh, out_sh, donate=(), on_host=()):
     """A ``StepSpec``. With a mesh it carries the shardings, and on a
     ``DeviceMesh`` its ``fn`` lays the arguments out by ``in_sh`` first
     and the results by ``out_sh`` after; on an abstract mesh ``fn`` is
-    the step itself."""
+    the step itself. The arguments numbered in ``on_host`` (the seed,
+    which the loop's rng reads on the host) stay where the caller put
+    them: their spec is replicated, and every rank passes the same
+    values."""
     if mesh is None:
         return StepSpec(name=name, fn=fn, args=args, donate_argnums=donate)
     run = fn
     if fn is not None and is_device_mesh(mesh):
         def run(*a):
-            a = tuple(distribute(x, s, mesh) for x, s in zip(a, in_sh))
+            a = tuple(x if i in on_host else distribute(x, s, mesh)
+                      for i, (x, s) in enumerate(zip(a, in_sh)))
             return distribute(fn(*a), out_sh, mesh)
     return StepSpec(name=name, fn=run, args=args, donate_argnums=donate,
                     in_shardings=in_sh, out_shardings=out_sh)
@@ -186,18 +191,19 @@ def _opt_state(p_shapes):
 
 
 def _key(seed: torch.Tensor) -> torch.Tensor:
-    """``jax.random.wrap_key_data`` of a (2,) uint32 seed: the port's key
-    holds the same two words in int64, on the CPU (the loop's rng); a
-    replicated DTensor seed is read from its local copy. A meta seed (a
-    traced step, ``launch.dryrun``) gives a meta key: ``common.prng``
-    draws shapes from it and reads no bits."""
+    """``jax.random.wrap_key_data`` of a (2,) uint32 seed on the host: the
+    port's key holds the same two words in int64, on the CPU (the loop's
+    rng; ROADMAP's standing divergences), so the step reads nothing from
+    the card. A replicated DTensor seed (a traced step's layout) is read
+    from its local copy. A meta seed (a traced step, ``launch.dryrun``)
+    gives a meta key: ``common.prng`` draws shapes from it and reads no
+    bits."""
     if is_dtensor(seed):
         seed = seed.to_local()
-    if seed.is_meta:
-        return seed.to(torch.int64)
-    # focuslint: disable=host-sync -- the loop's rng lives on the CPU
-    # (ROADMAP's standing divergences): 8 bytes a step
-    return seed.cpu().to(torch.int64)
+    if seed.device.type not in ("cpu", "meta"):
+        raise ValueError(f"the step's seed lives on the host with the "
+                         f"loop's rng, got one on {seed.device}")
+    return seed.to(torch.int64)
 
 
 def _train_step(loss_fn, n_microbatches: int = 1,
@@ -366,7 +372,7 @@ def build_dit(cfg: DiTConfig, cell: ShapeCell, mesh=None) -> StepSpec:
             out_sh = (p_shard, o_shard, P())
         return _spec(mesh, name, train_step,
                      (p_shapes, _opt_state(p_shapes), batch, seed),
-                     in_sh, out_sh, donate=(0, 1))
+                     in_sh, out_sh, donate=(0, 1), on_host=(3,))
 
     if cell.kind == "dit_gen":
         def serve_step(params, labels, seed):
@@ -380,7 +386,7 @@ def build_dit(cfg: DiTConfig, cell: ShapeCell, mesh=None) -> StepSpec:
             out_sh = P(dp, None, None, None)
         return _spec(mesh, name, serve_step,
                      (p_shapes, _meta((B,), torch.int32), seed),
-                     in_sh, out_sh)
+                     in_sh, out_sh, on_host=(2,))
 
     raise ValueError(cell.kind)
 

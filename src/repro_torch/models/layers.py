@@ -42,9 +42,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.common import prng
 from repro_torch.distributed.sharding import (by_rows, constrain,
-                                              gathered, grad_like,
-                                              heads_placements, is_dtensor,
-                                              on_blocks, replicate_like,
+                                              data_gathered, gathered,
+                                              grad_like, heads_placements,
+                                              is_dtensor, on_blocks,
+                                              replicate_like,
                                               rows_placements, splits,
                                               unflatten, whole, write_slot)
 from repro_torch.hopper import ops
@@ -546,7 +547,9 @@ def moe(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     them to XLA. Under a ``mesh`` the output is constrained to
     ``out_kind``, and, the port's own (ROADMAP C23), the groups to
     ``"groups"``, the expert buffers to ``"experts"`` and the experts'
-    outputs to ``"expert_groups"``: GShard's all-to-alls between them."""
+    outputs to ``"expert_groups"``: GShard's all-to-alls between them;
+    the experts' weights are gathered over the data axes before their
+    products (FSDP's all-gather, ROADMAP C26)."""
     B, S, D = x.shape
     gs, G, C = moe_groups(B * S, group_size, top_k, capacity_factor,
                           n_experts)
@@ -581,16 +584,17 @@ def moe(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
         raise ValueError(f"dispatch must be 'einsum' or 'scatter', got "
                          f"{dispatch!r}")
 
-    # its gradient, partial over the data axes, likewise reduce-scattered
-    # to this layout before the all-to-all back to the groups
-    exp_in = grad_like(constrain(exp_in, mesh, "experts"))
-    h = torch.einsum("egcd,edf->egcf", exp_in, params["wi"])
-    hg = torch.einsum("egcd,edf->egcf", exp_in, params["wg"])
-    exp_out = torch.einsum("egcf,efd->egcd", F.silu(hg) * h, params["wo"])
-    # partial over the data axes where DTensor splits the contracted d_ff
-    # over them: reduce-scatter it onto the groups with the experts kept
-    # over "model", then the experts' all-to-all (ROADMAP C24; one move
-    # would reduce the whole product)
+    exp_in = constrain(exp_in, mesh, "experts")
+    # the experts' weights whole over the data axes (FSDP's gather, their
+    # gradients reduce-scattered back; ROADMAP C26): no product contracts
+    # a split dimension, so h, hg and the output come out whole, laid out
+    # as exp_in
+    wi, wg, wo = (data_gathered(params[k]) for k in ("wi", "wg", "wo"))
+    h = torch.einsum("egcd,edf->egcf", exp_in, wi)
+    hg = torch.einsum("egcd,edf->egcf", exp_in, wg)
+    exp_out = torch.einsum("egcf,efd->egcd", F.silu(hg) * h, wo)
+    # already "experts"; then the experts' all-to-all onto the groups
+    # (ROADMAP C24)
     for kind in ("experts", "expert_groups"):
         exp_out = constrain(exp_out, mesh, kind)
 

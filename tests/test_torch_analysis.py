@@ -469,7 +469,7 @@ PINNED = collections.Counter([
      "blocking copy to the host"),
 ] + [("src/repro_torch/core/clustering.py", "host-sync",
       ".cpu() of a device tensor in hot-path function 'cluster_fused' -- a "
-      "blocking copy to the host")] * 3 + [
+      "blocking copy to the host")] * 2 + [
     ("src/repro_torch/core/index.py", "cache-version",
      "'attach' mutates self.{counts} in place without bumping "
      "self.versions — the (cid, version) GT-label cache will serve stale "
@@ -505,9 +505,6 @@ PINNED = collections.Counter([
      "no cuda test in tests/test_torch_hopper_cuda.py compares "
      "ops.flash_attention with ref.flash_attention_ref exactly "
      "(assert_array_equal or torch.equal)"),
-    ("src/repro_torch/launch/steps.py", "host-sync",
-     ".cpu() of a device tensor in built-step function '_key' -- a blocking "
-     "copy to the host"),
 ])
 
 

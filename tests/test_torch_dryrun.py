@@ -21,9 +21,10 @@ host devices, which must never happen in a pytest worker.
   with the all-to-all NCCL would run.
 - F3 (C22): reduced dit-s2's train and sampler steps trace with meta
   latents and a meta seed.
-- C24: the MoE experts' output moves as a reduce-scatter then an
-  all-to-all, at the hand-counted bytes (reduced moonshot's train step
-  on an (8, 2) mesh).
+- C24 and C26: on reduced moonshot's train step on an (8, 2) mesh, the
+  MoE experts' weights are gathered over "data" before their products
+  at the hand-counted bytes, the products move nothing, and the
+  experts' output moves by its all-to-all alone.
 - On JAX's reduced 8-device cell (``tests/test_launch.py``: reduced
   olmo-1b, d_model 128, 4 heads, seq 128, batch 8, a (2, 2, 2) mesh) the
   port's per-device argument bytes are JAX's
@@ -81,13 +82,21 @@ def _c24_cfg():
                                train_microbatches=1, d_model=256, d_ff=1024)
 
 
-def _experts_output_line() -> int:
-    """The line of ``layers.moe`` that moves the experts' output."""
+def _moe_line(text: str) -> int:
+    """The line of ``layers.moe`` that holds ``text``."""
     import inspect
     from repro_torch.models import layers
     src, start = inspect.getsourcelines(layers.moe)
-    return start + next(i for i, text in enumerate(src)
-                        if "exp_out = constrain(exp_out" in text)
+    return start + next(i for i, line in enumerate(src) if text in line)
+
+
+# the lines of layers.moe that C24 and C26 read: the experts' output
+# moved, the weights gathered, the products h, hg and the output (with
+# the silu)
+MOE_LINES = {"output": "exp_out = constrain(exp_out",
+             "gather": "= (data_gathered(params[k])",
+             "h": "h = torch.einsum(", "hg": "hg = torch.einsum(",
+             "silu": "F.silu(hg) * h"}
 
 
 def port_main():
@@ -148,16 +157,16 @@ def port_main():
     out["extrap_args"] = [est["memory"]["argument_size_in_bytes"],
                           direct["memory"]["argument_size_in_bytes"]]
 
-    # C24: the MoE experts' output, partial over "data", moved in two
-    # steps; on an (8, 2) mesh at these widths DTensor plans the wo
-    # product partial, as at full width (on 2 data ranks it gathers)
+    # C24 and C26: the MoE experts' weights and output on an (8, 2) mesh,
+    # each line's collectives
     mesh = make_fake_mesh(C24_MESH, ("data", "model"))
     rec = measure(_c24_cfg(), _cell("moonshot-v1-16b-a3b", "train_4k",
                                     **C24_CELL), mesh)
-    line = _experts_output_line()
-    out["c24_site"] = sorted([kind, k, wire] for (site, kind, k), wire
-                             in rec["wire_by_site"].items()
-                             if site == f"models/layers.py:{line}")
+    for name, text in MOE_LINES.items():
+        site = f"models/layers.py:{_moe_line(text)}"
+        out[f"moe_site/{name}"] = sorted(
+            [kind, k, wire] for (at, kind, k), wire
+            in rec["wire_by_site"].items() if at == site)
 
     # JAX's reduced 8-device cell
     mesh = make_fake_mesh((2, 2, 2), ("pod", "data", "model"))
@@ -264,28 +273,50 @@ def test_f2_moe_steps_trace_and_plan_all_to_all(runs):
     assert port["launches_unchanged"]
 
 
-def test_c24_experts_output_is_a_reduce_scatter_then_an_all_to_all(runs):
-    """ROADMAP C24: the experts' product, partial over "data", goes to
-    the "experts" layout (a reduce-scatter onto the groups, the experts
-    kept over "model"), then to "expert_groups" (the experts' all-to-all
-    over "model"): no all-reduce at the site, and its wire bytes are the
-    hand count. Per device, the "experts" block is (E/2, G/8, C, D) bf16
-    and so is the "expert_groups" block (E, G/16, C, D); the ring model
-    sends k - 1 blocks for a reduce-scatter over k ranks and (k - 1)/k
-    of one for an all-to-all."""
+def _c24_groups():
     from repro_torch.models.layers import moe_groups
     cfg = _c24_cfg()
     n_tok = C24_CELL["global_batch"] * C24_CELL["seq_len"]
     gs, G, C = moe_groups(n_tok, cfg.moe_group_size, cfg.moe_top_k,
                           cfg.moe_capacity_factor, cfg.n_experts)
     assert (G, C) == (16, 20) and not cfg.remat
+    return cfg, G, C
+
+
+def test_c24_experts_output_is_a_reduce_scatter_then_an_all_to_all(runs):
+    """ROADMAP C24 and C26: the experts' product, whole since its weights
+    are gathered first (C26), is already in the "experts" layout (the
+    experts over "model", the groups over "data"), and goes to
+    "expert_groups" by the experts' all-to-all over "model" and nothing
+    else: no reduce-scatter, no all-reduce at the site. Per device, the
+    "experts" block is (E/2, G/8, C, D) bf16 and so is the
+    "expert_groups" block (E, G/16, C, D); the ring model sends
+    (k - 1)/k of one for an all-to-all over k ranks."""
+    cfg, G, C = _c24_groups()
     data, model = C24_MESH
     block = (cfg.n_experts // model) * (G // data) * C * cfg.d_model * 2
     assert block == cfg.n_experts * (G // (data * model)) * C * \
         cfg.d_model * 2
-    want = [["all-to-all", model, block * (model - 1) / model],
-            ["reduce-scatter", data, block * (data - 1)]]
-    assert runs[0]["c24_site"] == want
+    want = [["all-to-all", model, block * (model - 1) / model]]
+    assert runs[0]["moe_site/output"] == want
+
+
+def test_c26_experts_weights_are_gathered_before_their_products(runs):
+    """ROADMAP C26: wi, wg and wo are gathered over "data" (FSDP's
+    all-gather; the experts stay over "model") at one line, before the
+    products, so that the products h and hg and the silu line contract
+    nothing split and move nothing. Per device each gathered weight is
+    (E/2, D, F) bf16 (wo (E/2, F, D)), of which the ring sends
+    (k - 1)/k over the k data ranks: the three weights' all-gathers at
+    the line are exactly that, once each (one micro-batch, no remat)."""
+    cfg, _, _ = _c24_groups()
+    data, model = C24_MESH
+    weight = (cfg.n_experts // model) * cfg.d_model * cfg.d_ff * 2
+    port = runs[0]
+    for name in ("h", "hg", "silu"):
+        assert port[f"moe_site/{name}"] == [], name
+    assert port["moe_site/gather"] == [
+        ["all-gather", data, 3 * weight * (data - 1) / data]]
 
 
 def test_f3_dit_steps_trace_with_meta_latents(runs):

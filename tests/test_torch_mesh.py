@@ -33,6 +33,12 @@ host devices gives what needs more than one JAX device: the blocks
   margin is at least 1e-4 in every layer (ROADMAP C14): every layer's
   choices equal the unsharded model's, and the logits are within 1e-5
   of the largest |logit| of the unsharded model's and of JAX's.
+- Reduced moonshot's built ``train_4k`` step (fp32, 4 micro-batches of
+  2 x 32 tokens, one step) on such tokens, its experts' weights
+  gathered over "data" before their products (ROADMAP C26): within
+  1e-5 of the unsharded port step by ``_same_step``'s rule; and
+  ``sharding.data_gathered`` runs one all-gather forward and one
+  reduce-scatter backward, the gradient on the weight's placements.
 - Built serve steps of the other families, reduced, on the mesh against
   the unsharded step, within 1e-5 of the largest |value|: olmo-1b's
   decode on each cache layout ``_cache_sharding`` gives (KV heads over
@@ -80,6 +86,9 @@ SHAPE = (2, 2)
 AXES = ("data", "model")
 ARCHS = ("olmo-1b", "moonshot-v1-16b-a3b")
 TRAIN_B, TRAIN_S = 4, 16
+# reduced moonshot's train step: its 4 micro-batches of 2 x 32 tokens
+# make 2 groups of 32 each, one on each data rank
+MOE_TRAIN_B, MOE_TRAIN_S = 8, 32
 VIT_B = 4
 MARGIN = 1e-4
 CHOOSE = [(n, mp, pods) for n in range(1, 5) for mp in (1, 2, 4)
@@ -136,6 +145,25 @@ def _lm_train_spec(grad_dtype, mesh=None, **over):
     cell = dataclasses.replace(get_shapes("olmo-1b")["train_4k"],
                                global_batch=TRAIN_B, seq_len=TRAIN_S)
     return cfg, cell, ST.build_lm(cfg, cell, mesh)
+
+
+def _moe_train_spec(mesh=None):
+    """(cfg, cell, the built step) of reduced moonshot's train_4k at
+    ``MOE_TRAIN_B`` x ``MOE_TRAIN_S``."""
+    from repro_torch.configs import get_shapes
+    from repro_torch.launch import steps as ST
+    cfg = _cfg("moonshot-v1-16b-a3b")
+    cell = dataclasses.replace(get_shapes("moonshot-v1-16b-a3b")["train_4k"],
+                               global_batch=MOE_TRAIN_B, seq_len=MOE_TRAIN_S)
+    return cfg, cell, ST.build_lm(cfg, cell, mesh)
+
+
+def _moe_batch(cfg, p):
+    """Tokens routed with a top-k margin of ``MARGIN`` (``moe_tokens``)
+    and seeded labels."""
+    return {"tokens": moe_tokens(cfg, p, MOE_TRAIN_B, MOE_TRAIN_S)[0],
+            "labels": torch.from_numpy(np.random.default_rng(1).integers(
+                0, cfg.vocab_size, (MOE_TRAIN_B, MOE_TRAIN_S), np.int32))}
 
 
 def _vit_train_spec(mesh=None):
@@ -356,18 +384,60 @@ def _margin(probs, k):
     return float((srt[..., :-1] - srt[..., 1:]).min())
 
 
-def moe_tokens(cfg, p):
+def moe_tokens(cfg, p, B=TRAIN_B, S=TRAIN_S):
     """The first seed's (B, S) tokens whose router top-k margin is at
     least ``MARGIN`` in every layer of the unsharded model: (tokens, its
     logits, each layer's chosen experts)."""
     from repro_torch.models import transformer as T
     for seed in range(50):
         toks = torch.from_numpy(np.random.default_rng(seed).integers(
-            0, cfg.vocab_size, (TRAIN_B, TRAIN_S), np.int32))
+            0, cfg.vocab_size, (B, S), np.int32))
         (ref, _), ridx, rprobs = _routes(lambda: T.forward(p, toks, cfg))
         if min(_margin(pr, cfg.moe_top_k) for pr in rprobs) >= MARGIN:
             return toks, ref, ridx
     raise AssertionError(f"no tokens with a top-k margin of {MARGIN}")
+
+
+def gather_collectives(mesh):
+    """``sharding.data_gathered`` of an expert weight laid out as
+    ``moe/wi`` ("model", "data", None), a product with an input laid out
+    as "experts" (experts over "model", groups over "data") and its
+    backward: npz entries with the c10d collectives each pass ran, the
+    gradient's placements against the weight's, and whether the
+    gradient equals the unsharded one."""
+    from torch.distributed.tensor import distribute_tensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.distributed import sharding as S
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if func.namespace == "_c10d_functional" and not (
+                    name == "wait_tensor" or name.startswith("_")):
+                self.ops.append(name)
+            return func(*args, **(kwargs or {}))
+
+    g = np.random.default_rng(8)
+    w = torch.from_numpy(g.standard_normal((4, 8, 6)).astype(np.float32))
+    x = torch.from_numpy(g.standard_normal((4, 2, 8)).astype(np.float32))
+    pl = S.to_placements(S.P("model", "data", None), mesh)
+    dw = distribute_tensor(w, mesh, pl).requires_grad_()
+    dx = distribute_tensor(x, mesh, pl)
+    with Log() as fwd:
+        y = torch.einsum("egd,edf->egf", dx, S.data_gathered(dw))
+    with Log() as bwd:
+        (grad,) = torch.autograd.grad(y, dw, torch.ones_like(y))
+    w.requires_grad_()
+    (want,) = torch.autograd.grad(torch.einsum("egd,edf->egf", x, w), w,
+                                  torch.ones((4, 2, 6)))
+    return {"gather/fwd": np.array(fwd.ops), "gather/bwd": np.array(bwd.ops),
+            "gather/placed": np.array(grad.placements == dw.placements),
+            "gather/grad_ok": np.array(bool(torch.allclose(
+                grad.full_tensor(), want, rtol=1e-6, atol=0)))}
 
 
 def rank_main(rank, store_path, out_dir):
@@ -428,6 +498,15 @@ def rank_main(rank, store_path, out_dir):
     for i, (a, b) in enumerate(zip(idx, ridx)):
         out[f"moe/idx/{i}"], out[f"moe/ref_idx/{i}"] = a, b
     times["moe"] = time.perf_counter() - t0
+
+    # moonshot's built train step: the experts' weights and gradients
+    t0 = time.perf_counter()
+    out.update(gather_collectives(mesh))
+    cfg, _, spec = _moe_train_spec(mesh)
+    p = T.init(cfg, 0, "cpu")
+    out.update(_flat(run_train(spec, p, _moe_batch(cfg, p), n_steps=1),
+                     "moe_train"))
+    times["moe_train"] = time.perf_counter() - t0
 
     # the other families' serve steps: LM decode (the sharded cache
     # written in place), DiT's sampler, EfficientNet
@@ -668,6 +747,10 @@ def ranks(tmp_path_factory):
         params = T.init(cfg, 0, "cpu")
         toks = moe_tokens(cfg, params)[0]
         refs["jax/moe"] = (toks.numpy(), _jax_moe_logits(params, toks))
+        cfg, _, spec = _moe_train_spec()
+        params = T.init(cfg, 0, "cpu")
+        refs["moe_train"] = run_train(spec, params, _moe_batch(cfg, params),
+                                      n_steps=1)
         refs["loop"] = run_loop(None, os.path.join(out_dir, "ref_loop"))
         jout, jerr = jproc.communicate(timeout=300)
         assert jproc.returncode == 0, jerr[-3000:]
@@ -775,6 +858,34 @@ def test_moe_forward_routes_as_unsharded(ranks):
         for ref in (z["moe/ref_logits"], jlogits):
             assert np.abs(z["moe/logits"] - ref).max() <= \
                 ATOL * np.abs(ref).max()
+
+
+def test_data_gathered_backward_is_a_reduce_scatter(ranks):
+    """``sharding.data_gathered`` all-gathers an expert weight over
+    "data" and nothing else, and the backward of a product with it hands
+    the gradient, a partial sum over "data", back on the weight's own
+    placements by a reduce-scatter (FSDP's move), not an all-reduce
+    (ROADMAP C26): equal to the unsharded gradient."""
+    for z in ranks[0]:
+        assert list(z["gather/fwd"]) == ["all_gather_into_tensor"]
+        assert list(z["gather/bwd"]) == ["reduce_scatter_tensor"]
+        assert bool(z["gather/placed"]) and bool(z["gather/grad_ok"])
+
+
+def test_moe_train_step_on_the_mesh(ranks):
+    """Reduced moonshot's built train_4k step (fp32, 4 micro-batches, 2
+    groups each, one on each data rank), one step on the mesh: the
+    experts' weights gathered over "data" before their products and
+    their gradients handed back on their shards (ROADMAP C26), the
+    experts' input and output moved as C24 moves them, and their
+    gradients. Within 1e-5 of the unsharded port step by ``_same_step``'s
+    rule, on tokens whose router top-k margin is at least ``MARGIN`` in
+    every layer (C14)."""
+    npz, _, refs, _ = ranks
+    port = refs["moe_train"]
+    for z in npz:
+        got = dict(_unflat(z, "moe_train", n_steps=1), after=port["after"])
+        _same_step(got, port, "moe train step vs unsharded")
 
 
 @pytest.mark.parametrize("name", [d[0] for d in DECODES] + ["dit",

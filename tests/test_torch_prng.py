@@ -5,8 +5,13 @@ computes XLA's own ``erf_inv`` and ``log1p``, fused multiply-adds
 included). Then the weights drawn from it: ``cnn.init_params(cfg, seed)``
 equals ``repro.models.cnn.init(PRNGKey(seed), cfg)`` bit for bit, so the
 default serve path trains the JAX package's models and, with no weights
-shared, prints the JAX serve's choice line."""
+shared, prints the JAX serve's choice line. The same run of the port's
+default serve, handed to the JAX serve through its model cache, gives
+its choice line and answers too."""
+import contextlib
 import dataclasses
+import io
+import pickle
 import sys
 
 import jax
@@ -18,6 +23,7 @@ import torch
 from repro.common.config import CheapCNNConfig as JCheapCNNConfig
 from repro.models import cnn as jcnn
 from repro_torch.common import prng
+from repro_torch.data.video import get_stream
 from repro_torch.launch import serve, zoo
 from repro_torch.models import cnn
 
@@ -127,21 +133,81 @@ def _lines(out: str, prefix: str):
     return [line for line in out.splitlines() if line.startswith(prefix)]
 
 
+DEFAULT_ARGV = ["--stream", "jacksonh", "--duration", "10", "--fps", "30",
+                "--steps", "20", "--rounds", "1"]
+
+
+@pytest.fixture(scope="module")
+def default_serve(tmp_path_factory):
+    """The port's default serve with ``DEFAULT_ARGV`` on the CPU (spec1-spec3
+    trained from its own threefry draw, the sweep, the choice, ingest and
+    one round), run once for the module's two comparisons with the JAX
+    serve: (its report, what it printed, its model cache)."""
+    cache = tmp_path_factory.mktemp("port")
+    printed = io.StringIO()
+    threads = torch.get_num_threads()
+    # one intra-op thread: beside the other test workers, a thread per
+    # core each leaves the serve's training many times slower
+    torch.set_num_threads(1)
+    try:
+        with pytest.MonkeyPatch.context() as mp, \
+                contextlib.redirect_stdout(printed):
+            mp.setattr(zoo, "CACHE_DIR", cache)
+            report = serve.main(DEFAULT_ARGV + ["--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
+    return report, printed.getvalue(), cache
+
+
 def test_serve_default_path_choice_equals_jax_serve_from_one_seed(
-        tmp_path, monkeypatch, capsys):
+        default_serve, tmp_path, monkeypatch, capsys):
     """ROADMAP C7's closure: from one seed and NO shared weights, the port
     (training spec1-spec3 from its own threefry draw) and the JAX package
     (training from ``jax.random``) print the same choice line."""
-    monkeypatch.setattr(zoo, "CACHE_DIR", tmp_path / "port")
-    argv = ["--stream", "jacksonh", "--duration", "10", "--fps", "30",
-            "--steps", "20", "--rounds", "1"]
-    serve.main(argv + ["--device", "cpu"])
-    port_out = capsys.readouterr().out
+    port_out = default_serve[1]
+    import benchmarks.common as bc
+    from repro.launch import serve as jserve
+    monkeypatch.setattr(bc, "CACHE_DIR", str(tmp_path / "jax"))
+    monkeypatch.setattr(sys, "argv", ["serve"] + DEFAULT_ARGV)
+    assert jserve.main() == 0
+    jax_out = capsys.readouterr().out
+    choice = _lines(port_out, "[serve] policy=")
+    assert len(choice) == 1 and choice == _lines(jax_out, "[serve] policy=")
+    answers = _lines(port_out, "  query class=")
+    assert answers and answers == _lines(jax_out, "  query class=")
+
+
+def test_serve_default_path_matches_jax_serve(default_serve, tmp_path,
+                                              monkeypatch, capsys):
+    """With no ``--K/--T`` the port trains spec1-spec3, sweeps (model, K,
+    T), selects by policy and ingests with the chosen model's class map,
+    as ``repro.launch.serve`` does. Given the same trained weights (the
+    port's, handed to the JAX package through its model cache), both
+    print the same choice line and the same answers."""
+    report, port_out, cache = default_serve
+    sel = report["selection"]
+    assert set(sel["models"]) == set(zoo.SPECIALIZED_FAMILY)
+    for m in sel["models"].values():
+        assert m["train_s"] > 0 and [h["step"] for h in m["history"]] == \
+            [1, 5, 10, 15, 20]
+        assert m["history"][-1]["loss"] < m["history"][0]["loss"]
+    assert (report["K"], report["T"]) == (sel["choice"]["K"],
+                                          sel["choice"]["T"])
+    assert sel["choice"]["K"] in (1, 2, 4) and sel["choice"]["T"] in (0.5,
+                                                                     0.8)
 
     import benchmarks.common as bc
     from repro.launch import serve as jserve
     monkeypatch.setattr(bc, "CACHE_DIR", str(tmp_path / "jax"))
-    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    crops = get_stream("jacksonh", duration_s=10, fps=30).objects_array()[0]
+    for mid in zoo.SPECIALIZED_FAMILY:
+        sm = zoo.load_model(zoo.cache_prefix("jacksonh", mid, 10, 20, 6,
+                                             len(crops), cache))
+        with open(bc._cache_path("jacksonh", mid, 10), "wb") as f:
+            pickle.dump((sm.params,
+                         JCheapCNNConfig(**dataclasses.asdict(sm.cfg)),
+                         sm.class_map.global_ids.tolist()), f)
+    monkeypatch.setattr(sys, "argv", ["serve"] + DEFAULT_ARGV)
     assert jserve.main() == 0
     jax_out = capsys.readouterr().out
     choice = _lines(port_out, "[serve] policy=")

@@ -3,10 +3,7 @@ responses are identical on the same index, and the port's
 ``launch.serve`` entry point answers the same frames as the JAX
 ``QueryService`` over the JAX ingest of the same stream and the same CNN
 outputs — one-shot, and in archive mode over the shards it sealed."""
-import dataclasses
 import importlib
-import pickle
-import sys
 
 import numpy as np
 import pytest
@@ -16,14 +13,13 @@ from conftest import make_stream
 from repro.core.archive import ArchiveQueryEngine as JArchiveQueryEngine
 from repro.core.archive import ShardCatalog as JShardCatalog
 from repro.core.engine import QueryEngine as JQueryEngine
-from repro.common.config import CheapCNNConfig as JCheapCNNConfig
 from repro.core.query import dominant_classes
 from repro.serve import QueryService as JQueryService
 from repro.serve import ServiceConfig as JServiceConfig
 from repro_torch.common.config import CHEAP_CNNS
 from repro_torch.core.engine import QueryEngine
 from repro_torch.data.video import get_stream, gt_oracle
-from repro_torch.launch import serve, zoo
+from repro_torch.launch import serve
 from repro_torch.models import cnn
 from repro_torch.serve import QueryService, ServiceConfig
 
@@ -179,53 +175,6 @@ def test_serve_archive_mode_on_cpu_matches_jax_archive_engine(tmp_path):
     assert list(report["answers"]) == workload
     for x, res in zip(workload, results):
         np.testing.assert_array_equal(report["answers"][x], res.frames)
-
-
-def _lines(out: str, prefix: str):
-    return [line for line in out.splitlines() if line.startswith(prefix)]
-
-
-def test_serve_default_path_matches_jax_serve(tmp_path, monkeypatch,
-                                              capsys):
-    """With no ``--K/--T`` the port trains spec1-spec3, sweeps (model, K,
-    T), selects by policy and ingests with the chosen model's class map,
-    as ``repro.launch.serve`` does. Given the same trained weights (the
-    port's, handed to the JAX package through its model cache), both
-    print the same choice line and the same answers."""
-    monkeypatch.setattr(zoo, "CACHE_DIR", tmp_path / "port")
-    argv = ["--stream", "jacksonh", "--duration", "10", "--fps", "30",
-            "--steps", "20", "--rounds", "1"]
-    report = serve.main(argv + ["--device", "cpu"])
-    port_out = capsys.readouterr().out
-    sel = report["selection"]
-    assert set(sel["models"]) == set(zoo.SPECIALIZED_FAMILY)
-    for m in sel["models"].values():
-        assert m["train_s"] > 0 and [h["step"] for h in m["history"]] == \
-            [1, 5, 10, 15, 20]
-        assert m["history"][-1]["loss"] < m["history"][0]["loss"]
-    assert (report["K"], report["T"]) == (sel["choice"]["K"],
-                                          sel["choice"]["T"])
-    assert sel["choice"]["K"] in (1, 2, 4) and sel["choice"]["T"] in (0.5,
-                                                                     0.8)
-
-    import benchmarks.common as bc
-    from repro.launch import serve as jserve
-    monkeypatch.setattr(bc, "CACHE_DIR", str(tmp_path / "jax"))
-    crops = get_stream("jacksonh", duration_s=10, fps=30).objects_array()[0]
-    for mid in zoo.SPECIALIZED_FAMILY:
-        sm = zoo.load_model(zoo.cache_prefix("jacksonh", mid, 10, 20, 6,
-                                             len(crops), tmp_path / "port"))
-        with open(bc._cache_path("jacksonh", mid, 10), "wb") as f:
-            pickle.dump((sm.params,
-                         JCheapCNNConfig(**dataclasses.asdict(sm.cfg)),
-                         sm.class_map.global_ids.tolist()), f)
-    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
-    assert jserve.main() == 0
-    jax_out = capsys.readouterr().out
-    choice = _lines(port_out, "[serve] policy=")
-    assert len(choice) == 1 and choice == _lines(jax_out, "[serve] policy=")
-    answers = _lines(port_out, "  query class=")
-    assert answers and answers == _lines(jax_out, "  query class=")
 
 
 @pytest.mark.parametrize("extra", [["--K", "4"], ["--T", "0.5"],

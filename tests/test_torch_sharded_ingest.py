@@ -530,7 +530,14 @@ def test_serve_mesh_devices_matches_jax_serve(tmp_path, monkeypatch, capsys):
     argv = ["--stream", "jacksonh", "--duration", "10", "--fps", "30",
             "--steps", "20", "--rounds", "1", "--mesh-devices", "1",
             "--stream-chunks", "4"]
-    report = serve.main(argv + ["--device", "cpu"])
+    threads = torch.get_num_threads()
+    # one intra-op thread: beside the other test workers, a thread per
+    # core each leaves the serve's training many times slower
+    torch.set_num_threads(1)
+    try:
+        report = serve.main(argv + ["--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
     port_out = capsys.readouterr().out
     assert report["ingest_chunks"] == 4
 
