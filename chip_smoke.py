@@ -5,7 +5,8 @@ the card.
 
   python3 chip_smoke.py                 # from the root of a checkout
   python3 chip_smoke.py --compare DIR   # the default serve, the 600 s
-                                        # one-shot, background subtraction
+                                        # one-shot, the multi-stream
+                                        # runner, background subtraction
                                         # and the shared kernels, the tree
                                         # at DIR (a parent commit) against
                                         # this one
@@ -78,10 +79,15 @@ Phases, each fatal on failure (no phase's failure is caught):
    ``make_ingest_mesh(1)`` with a ``topk_sink``, 4 chunks a stream per
    round, interleaved, each stream's index, counters and sink equal to
    its solo ``IngestPipeline``'s, ``centroid_assign`` and ``topk`` once per
-   stacked step, ≤ 2 dispatches a step; the staged ``MultiStreamRunner``
-   over the same streams equal too; a rollover on a 30 s cut (2048
+   stacked step, ≤ 2 dispatches a step; a rollover on a 30 s cut (2048
    objects per shard) equal to solo rollovers; ``make_ingest_mesh`` past
-   the card count raising its actionable error. Each path's launch counters
+   the card count raising its actionable error; and the 30 s cut on two
+   blocks of this one card (``IngestMesh((cuda:0, cuda:0))``, block 1 on
+   its own replica of the forward), in turns with one block, each
+   stream's index, counters and sink equal to its solo pipeline's,
+   ``centroid_assign`` and ``topk`` once per (step, active block) pair,
+   and the staged ``MultiStreamRunner`` on that cut equal too.
+   Each path's launch counters
    are zeroed just before it and read just after: the one-shot path must
    launch ``centroid_assign`` and ``pixel_match``, the archive path those
    and ``dequant_topk``, the pipeline path ``centroid_assign``,
@@ -261,6 +267,7 @@ router probabilities.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -1756,7 +1763,7 @@ def pipeline_rollover(forward, cfg, flops, duration, shard_objects=2048,
 
 
 # ---------------------------------------------------------------------------
-# phase 3: multi-stream ingest (the sharded runner on a one-card mesh)
+# phase 3: multi-stream ingest (the sharded runner on one card)
 # ---------------------------------------------------------------------------
 
 # eight cameras of the zoo: traffic, surveillance and news
@@ -1819,18 +1826,15 @@ def multistream_path(ops, forward, mcfg, duration=120, n_chunks=4):
     just after. Every stream must save its solo ``IngestPipeline``'s
     bytes, counters and sink; ``centroid_assign`` and ``topk`` launch once
     per stacked step (not per stream batch), at most 2 dispatches a step.
-    Then the staged ``MultiStreamRunner`` (each stream's batch forwarded
-    at its solo shape) over the same streams, a rollover run on a 30 s cut
-    of them (2048 objects per shard) against solo rollovers, and
-    ``make_ingest_mesh(2)``'s error on a one-card machine. Records whether
-    a stacked forward (8 x 512 crops) gives the solo forward's rows."""
+    Then a rollover run on a 30 s cut of them (2048 objects per shard)
+    against solo rollovers, and ``make_ingest_mesh(2)``'s error on a
+    one-card machine. Records whether
+    a stacked forward (8 x 512 crops) gives the solo forward's rows. Last,
+    ``multistream_two_blocks``: two blocks on this one card."""
     import numpy as np
     import torch
     from repro_torch.core.ingest import IngestConfig
-    from repro_torch.core.pipeline import staged_cheap_apply
-    from repro_torch.core.streaming import (MultiStreamRunner,
-                                            StreamingIngestor,
-                                            make_sharded_runner)
+    from repro_torch.core.streaming import make_sharded_runner
     from repro_torch.data.video import get_stream
     from repro_torch.launch.mesh import make_ingest_mesh
 
@@ -1887,25 +1891,7 @@ def multistream_path(ops, forward, mcfg, duration=120, n_chunks=4):
                   for nm in MULTI_STREAMS}
     del got
 
-    # the staged runner: one cheap_apply, each stream's batch forwarded at
-    # its solo shape; it must save the solo pipelines' bytes too
-    staged = MultiStreamRunner(
-        {nm: StreamingIngestor(None, flops, cfg, n_local_classes=1000)
-         for nm in MULTI_STREAMS},
-        cheap_apply=staged_cheap_apply(forward, cfg))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for chunks in rounds:
-        staged.feed(chunks)
-        staged.flush()
-    staged_got = staged.finish()
-    torch.cuda.synchronize()
-    staged_wall = time.perf_counter() - t0
-    for nm, (index, _) in staged_got.items():
-        check(index.save_bytes() == solo[nm][0],
-              f"{nm}: the staged runner's index differs from the solo "
-              f"pipeline's")
-    del solo, rounds, staged_got
+    del solo, rounds
 
     # does one stacked forward (8 x 512 crops) give the solo rows here?
     x = torch.from_numpy(streams["jacksonh"][0][:8 * 512]).to(
@@ -1931,13 +1917,130 @@ def multistream_path(ops, forward, mcfg, duration=120, n_chunks=4):
         "sharded_wall_s": wall, "sharded_objects_per_s": n_objects / wall,
         "solo_pipelines_wall_s": solo_wall,
         "solo_pipelines_objects_per_s": n_objects / solo_wall,
-        "staged_runner_wall_s": staged_wall,
-        "staged_runner_objects_per_s": n_objects / staged_wall,
         "bytes_identical": True, "per_stream": per_stream,
         "stacked_forward_rows_equal_solo": rows_equal,
         "mesh_error": "make_ingest_mesh(n > cards) raised ValueError",
         "rollover": multistream_rollover(forward, cfg, flops),
+        "two_blocks": multistream_two_blocks(ops, forward, cfg, flops),
     }
+
+
+def multistream_two_blocks(ops, forward, cfg, flops, duration=30,
+                           n_chunks=4):
+    """The eight streams' ``duration`` s cut through ``make_sharded_runner``
+    on ``IngestMesh((card, card))``, ``forward``'s card (``cuda:0``): two
+    blocks on one card, block 0 on ``forward`` and block 1 on its own
+    replica (one card shows a second block only so: ``make_ingest_mesh``
+    refuses more blocks than cards). Runs in turns one block, two, two,
+    one on the same chunks (launch counters zeroed just before the first
+    two-block turn and read just after it), then each stream's solo
+    pipeline and the staged ``MultiStreamRunner`` (each stream's batch
+    forwarded at its solo shape): every turn's and the staged runner's
+    bytes equal the solo run's, the turns' counters and sinks too, and
+    ``centroid_assign`` and ``topk`` launch once per (step, active
+    block) pair. The walls show what block 1's replica and its second
+    dispatch a step cost."""
+    import torch
+    from repro_torch.core.pipeline import staged_cheap_apply
+    from repro_torch.core.streaming import (MultiStreamRunner,
+                                            StreamingIngestor,
+                                            make_sharded_runner)
+    from repro_torch.data.video import get_stream
+    from repro_torch.launch.mesh import IngestMesh
+    from repro_torch.models.cnn import CheapForward
+
+    streams = {nm: get_stream(nm, duration_s=duration,
+                              fps=30).objects_array()[:2]
+               for nm in MULTI_STREAMS}
+    n_objects = sum(len(c) for c, _ in streams.values())
+    rounds = _chunked(streams, n_chunks)
+    del streams
+    card = next(forward.parameters()).device
+    turns, launches, replica = [], None, None
+    for n_blocks in (1, 2, 2, 1):
+        digests = {}
+        runner = make_sharded_runner(
+            forward, IngestMesh((card,) * n_blocks), list(MULTI_STREAMS),
+            cfg=cfg, topk_sink=_digest_sink(digests), n_local_classes=1000,
+            cheap_flops_per_image=flops)
+        torch.cuda.synchronize()
+        counted = n_blocks == 2 and launches is None
+        if counted:
+            ops.reset_launches()
+        t0 = time.perf_counter()
+        for chunks in rounds:
+            runner.feed(chunks)
+            runner.flush()
+        got = runner.finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = runner.pipeline.stats
+        if counted:
+            launches = dict(ops.LAUNCHES)
+            check(st.n_block_steps > st.n_steps,
+                  "no step of the two-block run had both blocks active")
+            for k in ("centroid_assign", "topk"):
+                check(launches[k] == st.n_block_steps,
+                      f"{k} launched {launches[k]} times in "
+                      f"{st.n_block_steps} (step, active block) pairs")
+            check(launches["pixel_match"] > 0, "pixel_match never launched")
+            fw = runner.pipeline.forwards
+            pairs = list(zip(fw[1].parameters(), forward.parameters(),
+                             strict=True))
+            check(fw[0] is forward and fw[1] is not forward
+                  and isinstance(fw[1], CheapForward)
+                  and all(p.device == card and p.data_ptr() != q.data_ptr()
+                          and torch.equal(p, q) for p, q in pairs),
+                  "block 1 does not run a replica of block 0's forward")
+            replica = {"distinct_module": True, "own_storage": True,
+                       "same_weights": True, "device": str(card)}
+        turns.append({"blocks": n_blocks, "wall_s": wall,
+                      "objects_per_s": n_objects / wall,
+                      "steps": st.n_steps, "block_steps": st.n_block_steps,
+                      "dispatches": st.n_dispatches,
+                      "got": {nm: (index.save_bytes(),
+                                   vars(stats) | {"wall_s": 0},
+                                   digests[nm].digest())
+                              for nm, (index, stats) in got.items()}})
+        del runner, got
+    solo_digests = {}
+    solo, solo_wall = _solo_pipelines(forward, cfg, flops, rounds,
+                                      solo_digests)
+    staged = MultiStreamRunner(
+        {nm: StreamingIngestor(None, flops, cfg, n_local_classes=1000)
+         for nm in MULTI_STREAMS},
+        cheap_apply=staged_cheap_apply(forward, cfg))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for chunks in rounds:
+        staged.feed(chunks)
+        staged.flush()
+    staged_got = staged.finish()
+    torch.cuda.synchronize()
+    staged_wall = time.perf_counter() - t0
+    for nm, (index, _) in staged_got.items():
+        check(index.save_bytes() == solo[nm][0],
+              f"{nm}: the staged runner's index differs from the solo "
+              f"pipeline's")
+    del staged, staged_got
+    for t in turns:
+        for nm in MULTI_STREAMS:
+            got_bytes, got_stats, got_digest = t["got"][nm]
+            check(got_bytes == solo[nm][0],
+                  f"{nm}: the {t['blocks']}-block index differs from the "
+                  f"solo pipeline's")
+            check(got_stats == solo[nm][1],
+                  f"{nm}: {t['blocks']}-block counters differ from solo")
+            check(got_digest == solo_digests[nm].digest(),
+                  f"{nm}: the {t['blocks']}-block sink differs from solo")
+        del t["got"]
+    return {"mesh": [str(card)] * 2, "duration_s": duration,
+            "chunks_per_stream": n_chunks, "objects": n_objects,
+            "launches": launches, "replica": replica, "turns": turns,
+            "solo_pipelines_wall_s": solo_wall,
+            "staged_runner_wall_s": staged_wall,
+            "staged_runner_objects_per_s": n_objects / staged_wall,
+            "bytes_identical": True}
 
 
 def multistream_rollover(forward, cfg, flops, duration=30,
@@ -3727,11 +3830,22 @@ def mesh_path(ops, peaks):
     from repro_torch.train.train_loop import param_leaves
 
     t_path = time.perf_counter()
+    # device memory the earlier phases left: what only a reference cycle
+    # keeps stays allocated until the collector runs, and this path needs
+    # most of the card
+    held = [torch.cuda.memory_allocated() / 1e9
+            if MESH_DEVICE == "cuda" else 0.0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    held.append(torch.cuda.memory_allocated() / 1e9
+                if MESH_DEVICE == "cuda" else 0.0)
     ops.reset_launches()
     S.CONSTRAIN_MISSES = 0
     mesh = make_mesh((1, 1), ("data", "model"), device=MESH_DEVICE)
     out = {"backend": dist.get_backend(), "mesh": list(mesh.shape),
-           "mesh_axes": list(mesh.mesh_dim_names)}
+           "mesh_axes": list(mesh.mesh_dim_names),
+           "allocated_gb_at_start": {"before_gc": held[0],
+                                     "after_gc": held[1]}}
     if MESH_DEVICE == "cuda":
         out["nccl_version"] = ".".join(map(str, torch.cuda.nccl.version()))
         check(out["backend"] == "nccl", f"mesh backend {out['backend']}")
@@ -3872,6 +3986,10 @@ def mesh_path(ops, peaks):
         batches = [{"tokens": toks[:, :-1].contiguous(),
                     "labels": toks[:, 1:].contiguous()}]
         plain = _mesh_train(steps.build_lm(mcfg, cell), mparams, batches)
+        # the unsharded parameters and moments wait on the host: beside the
+        # sharded step's state and peak they would bring the card to its
+        # 80 GB
+        plain = plain[:2] + tuple([t.cpu() for t in x] for x in plain[2:])
         spec = steps.build_lm(mcfg, cell, mesh)
         before = dict(ops.LAUNCHES)
         sharded = _mesh_train(spec, mparams, batches, mesh)
@@ -3882,12 +4000,12 @@ def mesh_path(ops, peaks):
               f"{spec.name} on the mesh launched {n}, expected {per_step} "
               f"topk")
         bitwise = (plain[0] == sharded[0] and all(
-            torch.equal(a, b) for a, b in
+            torch.equal(a.to(b.device), b) for a, b in
             zip(plain[2] + plain[3] + plain[4],
                 sharded[2] + sharded[3] + sharded[4])))
         check(bitwise, f"{spec.name} on the mesh against unsharded: losses "
               f"{sharded[0]} / {plain[0]}, largest parameter difference "
-              f"{_largest_diff(plain[2], sharded[2])}")
+              f"{_largest_diff(plain[2], [t.cpu() for t in sharded[2]])}")
         out["moe_train"] = {
             "cell": spec.name,
             "cut": dict(tcut, n_layers=[lm_config(arch).n_layers,
@@ -5102,13 +5220,72 @@ print(json.dumps({
                                   "recall")}}))
 """
 
+# argv: the tree's src, the stream names (JSON), the seconds of each
+COMPARE_MULTISTREAM = r"""
+import hashlib, json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+from repro_torch.common.config import CHEAP_CNNS
+from repro_torch.core.ingest import IngestConfig
+from repro_torch.core.streaming import make_sharded_runner
+from repro_torch.data.video import get_stream
+from repro_torch.hopper import ops
+from repro_torch.launch.mesh import make_ingest_mesh
+from repro_torch.models import cnn
+names, duration, n_chunks = json.loads(sys.argv[2]), int(sys.argv[3]), 4
+mcfg = CHEAP_CNNS["cheap1"]
+forward = cnn.make_forward(cnn.build(mcfg, cnn.init_params(mcfg, seed=0),
+                                     "cuda"))
+streams = {nm: get_stream(nm, duration_s=duration, fps=30).objects_array()[:2]
+           for nm in names}
+n_objects = sum(len(c) for c, _ in streams.values())
+bounds = {nm: np.linspace(0, len(c), n_chunks + 1).astype(int)
+          for nm, (c, _) in streams.items()}
+rounds = [{nm: (c[bounds[nm][r]:bounds[nm][r + 1]],
+                f[bounds[nm][r]:bounds[nm][r + 1]])
+           for nm, (c, f) in streams.items()} for r in range(n_chunks)]
+sunk = {nm: hashlib.sha256() for nm in names}
 
-def _turns(code, trees, argv):
+
+def sink(name, objs, vals, idxs):
+    for a in (objs, vals, idxs):
+        sunk[name].update(a.tobytes())
+
+
+runner = make_sharded_runner(forward, make_ingest_mesh(1), names,
+                             cfg=IngestConfig(K=1000, threshold=0.4),
+                             topk_sink=sink, n_local_classes=1000,
+                             cheap_flops_per_image=mcfg.flops_per_image())
+torch.cuda.synchronize()
+ops.reset_launches()
+t0 = time.perf_counter()
+for chunks in rounds:
+    runner.feed(chunks)
+    runner.flush()
+got = runner.finish()
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+h = hashlib.sha256()
+for nm in names:
+    for suffix, data in got[nm][0].save_bytes():
+        h.update(suffix.encode())
+        h.update(data)
+    h.update(sunk[nm].digest())
+print(json.dumps({"wall_s": wall, "objects": n_objects,
+                  "objects_per_s": n_objects / wall,
+                  "steps": runner.pipeline.stats.n_steps,
+                  "launches": dict(ops.LAUNCHES),
+                  "bytes_and_sinks_sha256": h.hexdigest()}))
+"""
+
+
+def _turns(code, trees, argv, rounds=1):
     """``code`` run by the parent tree and by this checkout in turns
-    parent, change, change, parent, each in a process of its own; each
-    run's last line of output, parsed."""
+    parent, change, change, parent (``rounds`` times), each in a process
+    of its own; each run's last line of output, parsed."""
     runs = []
-    for tree in ("parent", "change", "change", "parent"):
+    for tree in ("parent", "change", "change", "parent") * rounds:
         out = subprocess.run(
             [sys.executable, "-c", code, trees[tree], *argv],
             capture_output=True, text=True, timeout=600)
@@ -5127,7 +5304,10 @@ def compare(parent_root, smi):
     stages (the tracker's matcher and the unmatched scan, the card
     synchronised around each call) side by side. The answers, the
     clusters and the choice, or the boxes and the background, must be
-    identical in all four runs. Last, the kernels both trees have, timed
+    identical in all four runs. Then the eight 120 s streams of
+    ``multistream_path`` through the sharded runner on
+    ``make_ingest_mesh(1)`` in eight turns (wall, objects/s, launches;
+    every stream's bytes and sink identical). Last, the kernels both trees have, timed
     by one method in each tree's process, in the same turns."""
     base = ["--stream", "jacksonh", "--fps", "30", "--tenants", "4",
             "--rounds", "3", "--device", "cuda"]
@@ -5149,6 +5329,14 @@ def compare(parent_root, smi):
         emit({"phase": f"compare_{path}", "gpu": smi, "argv": argv,
               "runs": runs, "answers_identical": True,
               "elapsed_s": elapsed()})
+    # two rounds: the path is paced by the host (the unmatched tail's
+    # per-row scan), whose speed varies between processes
+    runs = _turns(COMPARE_MULTISTREAM, trees,
+                  [json.dumps(list(MULTI_STREAMS)), "120"], rounds=2)
+    check(len({r["bytes_and_sinks_sha256"] for r in runs}) == 1,
+          "multistream_8x120s: parent and change save other bytes")
+    emit({"phase": "compare_multistream_8x120s", "gpu": smi, "runs": runs,
+          "bytes_identical": True, "elapsed_s": elapsed()})
     runs = _turns(COMPARE_BGSUB, trees, ["120"])
     same = {(r["boxes_sha256"], r["background_sha256"]) for r in runs}
     check(len(same) == 1, f"bgsub_120s: parent and change differ: {same}")
@@ -5334,10 +5522,14 @@ def main():
         entry["launches_archive"] = archive[entry["name"]]
         entry["launches_pipeline"] = pipe["launches"][entry["name"]]
         entry["launches_multistream"] = multi["launches"][entry["name"]]
+        entry["launches_multistream_two_blocks"] = \
+            multi["two_blocks"]["launches"][entry["name"]]
         entry["launches_mesh_serve"] = mesh_serve[entry["name"]]
     dq["launches"] = archive["dequant_topk"]
     tk["launches"] = pipe["launches"]["topk"]
     tk["launches_multistream"] = multi["launches"]["topk"]
+    tk["launches_multistream_two_blocks"] = \
+        multi["two_blocks"]["launches"]["topk"]
     lm = lm_path(ops, peaks, lm_config())
     emit({"phase": "lm_path", "gpu": smi, **lm, "elapsed_s": elapsed()})
     fa["launches"] = lm["launches"]["flash_attention"]
@@ -5423,7 +5615,9 @@ def main():
                "pipeline_600s": pipe["launches"][name],
                "default_serve_120s": default[name],
                "mesh_serve_120s": mesh_serve[name],
-               "multistream_8x120s": multi["launches"][name]}
+               "multistream_8x120s": multi["launches"][name],
+               "multistream_two_blocks_8x30s":
+                   multi["two_blocks"]["launches"][name]}
         for name in ("pixel_match", "centroid_assign")}})
     emit({"kernels": [ca, pm, dq, tk, mg, fa]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -29,6 +29,9 @@ RULES = {
         "(assert_array_equal / torch.equal) with its plain version"),
     "kernel-outside-ops": (
         "kernel launch on the loaded library outside hopper/ops.py"),
+    "kernel-device": (
+        "kernel launch in hopper/ops.py outside a 'with' of the module's "
+        "device guard (a function returning torch.cuda.device(...))"),
     "cache-version": (
         "ClusterStore-style method mutates a centroid/prob/count column "
         "without bumping .versions — rots the (cid, version) GT-label "

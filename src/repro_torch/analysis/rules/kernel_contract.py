@@ -1,5 +1,6 @@
 """Rules ``kernel-oracle`` / ``kernel-wrapper`` / ``kernel-test`` /
-``kernel-exact`` / ``kernel-outside-ops``: the port's kernel contract.
+``kernel-exact`` / ``kernel-outside-ops`` / ``kernel-device``: the port's
+kernel contract.
 
 The entries are the ``extern "C"`` symbols named ``*_launch`` in
 ``hopper/csrc/*.cu`` (read with a regex) and the ``*_launch`` rows of
@@ -23,7 +24,13 @@ directly or through private helpers of that module. Then:
 A test "calls ``ops.w``" when it calls ``w`` or another ``ops`` function
 that reaches it, itself or through the file's own helpers. A launch on
 the loaded library outside ``hopper/ops.py`` is ``kernel-outside-ops``:
-it bypasses the wrappers' checks and launch counts.
+it bypasses the wrappers' checks and launch counts. A launch in
+``hopper/ops.py`` that does not lie, in its source, inside a ``with`` of
+the module's device guard (a function of the module that returns
+``torch.cuda.device(...)``, or that call itself) is ``kernel-device``:
+the CUDA runtime launches on the current device, so a launch on another
+card's tensors would meet that card's stream from the wrong device. No
+machine of the project's runs two cards, so this rule is what holds it.
 """
 from __future__ import annotations
 
@@ -121,6 +128,39 @@ def _wrappers(project: ProjectIndex, ops: ModuleInfo):
     return out
 
 
+def _is_cuda_device(call: ast.AST) -> bool:
+    return isinstance(call, ast.Call) and \
+        dotted(call.func) == ("torch", "cuda", "device")
+
+
+def _device_guards(ops: ModuleInfo) -> Set[str]:
+    """Names of the top-level functions of ops.py that return
+    ``torch.cuda.device(...)``: the module's device guards."""
+    out = set()
+    for stmt in ops.tree.body:
+        if isinstance(stmt, ast.FunctionDef) and any(
+                isinstance(n, ast.Return) and _is_cuda_device(n.value)
+                for n in ast.walk(stmt)):
+            out.add(stmt.name)
+    return out
+
+
+def _unguarded_launches(fi: FuncInfo, guards: Set[str]) -> List[ast.Call]:
+    """The launches of ``fi`` that lie inside no ``with`` of a guard."""
+    def is_guard(expr):
+        return _is_cuda_device(expr) or (
+            isinstance(expr, ast.Call) and isinstance(expr.func, ast.Name)
+            and expr.func.id in guards)
+
+    inside: Set[int] = set()
+    for node in ast.walk(fi.node):
+        if isinstance(node, (ast.With, ast.AsyncWith)) and any(
+                is_guard(item.context_expr) for item in node.items):
+            for stmt in node.body:
+                inside.update(id(n) for n in ast.walk(stmt))
+    return [c for c in fi.launches if id(c) not in inside]
+
+
 def _counts_launches(reach: List[FuncInfo]) -> bool:
     for g in reach:
         for node in g.nodes:
@@ -168,6 +208,16 @@ def check_project(project: ProjectIndex) -> List[Finding]:
                            f"launch count)", fi.def_lines))
     if ops is None:
         return out
+
+    guards = _device_guards(ops)
+    for fi in ops.functions.values():
+        for call in _unguarded_launches(fi, guards):
+            out.append(_mk(ops.path, call.lineno, "kernel-device",
+                           f"kernel launch '{call.func.attr}' in "
+                           f"'{fi.name}' outside a device guard -- enter "
+                           f"'with _on(<its tensors' device>):' around it: "
+                           f"the runtime launches on the current device, "
+                           f"not the tensors'", fi.def_lines))
 
     wrappers = _wrappers(project, ops)
     reached = set().union(*[e for _, e, _ in wrappers.values()]) \

@@ -44,9 +44,11 @@ matched fold rather than after it. It is still the one per-batch fetch.
 
 ``ShardedIngestPipeline`` (DESIGN.md §13) runs the same megastep for many
 streams at once: the cluster tables stacked over stream slots on the
-ingest mesh's blocks, one ``topk`` and one stacked ``centroid_assign``
-launch and one stacked unmatched tail per step, however many streams it
-carries; every stream's bytes are those of its solo ``IngestPipeline``.
+ingest mesh's blocks, each block with its own replica of the forward on
+its own device, one ``topk`` and one stacked ``centroid_assign`` launch
+and one stacked unmatched tail per step and active block, however many
+streams it carries; every stream's bytes are those of its solo
+``IngestPipeline``.
 
 Without a JIT there is nothing to donate and no trace cache: the JAX
 package's buffer donation and ``jit_cache_entries`` have no counterpart
@@ -56,6 +58,7 @@ kernels meet.
 """
 from __future__ import annotations
 
+import copy
 import functools
 import time
 from collections import deque
@@ -64,6 +67,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.core import clustering as C
@@ -95,7 +99,9 @@ def _pad_rows(arr: np.ndarray, bucket: int) -> np.ndarray:
 def _to_device(x: np.ndarray, dev: torch.device) -> torch.Tensor:
     """Upload host rows. On the card they go through pinned memory without
     blocking, so the copy queues behind the stream's work instead of
-    waiting for it."""
+    waiting for it. ``.to(dev)`` runs the copy on ``dev``'s current stream
+    whichever card is current, and pinned memory is pinned for every card
+    (unified addressing), so this holds on a block of any card."""
     t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
     if dev.type == "cuda":
         return t.pin_memory().to(dev, non_blocking=True)
@@ -106,7 +112,8 @@ def _to_host(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """Queue a copy of ``t`` to the host. On the card it lands in pinned
     memory without blocking (a copy into pageable memory would block), so
     it waits only for the work queued before it; on the CPU ``t`` is
-    already there."""
+    already there. The copy runs on ``t``'s card's current stream, behind
+    that card's work only, whichever card is current."""
     if t is None or t.device.type == "cpu":
         return t
     out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -115,7 +122,10 @@ def _to_host(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 def _record(dev: torch.device):
-    """An event behind everything queued so far (None on the CPU)."""
+    """An event behind everything queued so far on ``dev`` (None on the
+    CPU). An event made without a device takes the device of the stream
+    it is first recorded on, so this is ``dev``'s event whichever card is
+    current, and its ``synchronize`` waits for that card's stream alone."""
     if dev.type != "cuda":
         return None
     ev = torch.cuda.Event()
@@ -233,6 +243,7 @@ def _host_fold(ing, stats: "PipelineStats", crops, objs, frames,
 class PipelineStats:
     n_batches: int = 0            # batches dispatched (per stream)
     n_steps: int = 0              # stacked steps (ShardedIngestPipeline)
+    n_block_steps: int = 0        # (stacked step, active block) pairs
     n_objects: int = 0            # real rows folded (pad rows excluded)
     n_dispatches: int = 0         # megasteps + unmatched tails
     n_tail_scans: int = 0         # batches that needed the unmatched tail
@@ -565,24 +576,34 @@ class ShardedIngestPipeline:
 
     A stacked step takes the head batch of every stream whose head shares
     the leading stream's (bucket, resolution) key, and per device block:
-    runs the forward on each active slot's crops at the solo shape (one
-    stacked forward would change the batch size, and with it cuDNN's and
-    cuBLAS's bits), ranks the stacked probability rows in ONE ``topk``
+    runs the block's forward on each active slot's crops at the solo shape
+    (one stacked forward would change the batch size, and with it cuDNN's
+    and cuBLAS's bits), ranks the stacked probability rows in ONE ``topk``
     launch (with a sink), and scores the stacked features against the
     stacked tables in ONE ``centroid_assign_stacked`` launch. Then the
     one fetch of the whole stack's ``(j, matched)``, each slot's matched
     fold, and ONE stacked unmatched tail for every slot with unmatched
     rows (``clustering._StackedScan``: slots without them ride along as
     no-ops). So a step costs one megastep dispatch and at most one tail,
-    however many streams it carries. Folding stays on the host per
-    stream, in slot order, through ``StreamingIngestor._fold_rows``.
-    Every stream's index is byte-identical to its solo ``IngestPipeline``
-    run. The step does not double-buffer across steps.
+    however many streams it carries: per active block one ``topk`` and
+    one ``centroid_assign`` launch, every block's queued before the
+    first fetch waits, so the cards run their blocks at once. Folding
+    stays on the host per stream, in slot order, through
+    ``StreamingIngestor._fold_rows``. Every stream's index is
+    byte-identical to its solo ``IngestPipeline`` run. The step does not
+    double-buffer across steps.
+
+    Block 0 runs the caller's ``forward``; every other block runs its own
+    replica on its own device (``forwards``), made at that block's first
+    dispatch, so an idle block holds no weights. ``forward`` is
+    replicated as a module (``copy.deepcopy(forward).to(device).eval()``,
+    as ``models.cnn.CheapForward``): the same weight bytes, so on a card
+    of the same kind the same output bits. A forward that is no module
+    cannot be placed; it is shared by every block, which only a mesh on
+    one device allows (a ``ValueError`` at construction otherwise).
 
     ``topk_sink(stream_name, objs, vals, idxs)`` — note the extra leading
     stream name against the single-stream ``IngestPipeline``'s sink.
-    Ingest over more than one card is not built: the forward and the
-    tables live on one card (CPU meshes may have any number of blocks).
     """
 
     def __init__(self, forward: Callable, mesh,
@@ -599,12 +620,16 @@ class ShardedIngestPipeline:
             raise ValueError(
                 f"len(slots)={len(slots)} must be a non-zero multiple of "
                 f"the mesh size {mesh.size} (pad with None)")
-        if len({d for d in mesh.devices if d.type == "cuda"}) > 1:
-            raise NotImplementedError(
-                "ingest over more than one card is not built: the forward "
-                "and the stacked tables live on one card; use "
-                "make_ingest_mesh(1)")
-        self.forward = forward
+        if not isinstance(forward, nn.Module) and len(set(mesh.devices)) > 1:
+            raise ValueError(
+                f"the forward is no torch.nn.Module, so it cannot be "
+                f"replicated onto the mesh's devices "
+                f"{sorted(map(str, set(mesh.devices)))}: pass a module "
+                f"(models.cnn.make_forward), or a mesh on one device")
+        # each block's forward: block 0's the caller's, the others' made at
+        # their first dispatch (_forward_of)
+        self.forwards: List[Optional[Callable]] = \
+            [forward] + [None] * (mesh.size - 1)
         self.mesh = mesh
         self.width = len(slots) // mesh.size
         self.cfg = cfg
@@ -698,6 +723,7 @@ class ShardedIngestPipeline:
                  for b in self.blocks if any(s in parts for s in b.slots)]
         self.stats.n_dispatches += 1
         self.stats.n_steps += 1
+        self.stats.n_block_steps += len(steps)
         self.stats.n_batches += len(parts)
 
         # the one (j, matched) fetch of the whole stack, queued with the
@@ -789,23 +815,36 @@ class ShardedIngestPipeline:
         if cfg is None:
             raise RuntimeError("pipeline has no cfg; bind an ingestor "
                                "(StreamingIngestor(pipeline=handle)) first")
-        self._k, feat_dim = _topk_width(self.forward, crops,
+        self._k, feat_dim = _topk_width(self.forwards[0], crops,
                                         self.blocks[0].device, self.topk_k,
                                         cfg.K)
         self._states = [shd.stacked_state(b, cfg.max_clusters, feat_dim)
                         for b in self.blocks]
 
+    def _forward_of(self, block) -> Callable:
+        """The block's forward: the caller's on block 0; elsewhere, made at
+        the block's first call, a replica on the block's device, or the
+        caller's own where it is no module (one device: see __init__)."""
+        f = self.forwards[block.index]
+        if f is None:
+            f = self.forwards[0]
+            if isinstance(f, nn.Module):
+                f = copy.deepcopy(f).to(block.device).eval()
+            self.forwards[block.index] = f
+        return f
+
     def _dispatch(self, block, slots: List[int], parts: dict,
                   bucket: int) -> _BlockStep:
-        """Queue one block's megastep: upload and forward each active slot
-        at the solo shape, [topk,] phase 1 over the stack, and the host
-        copies of everything the fold reads. Nothing here waits for the
-        card."""
+        """Queue one block's megastep on its device: upload and forward
+        each active slot at the solo shape, [topk,] phase 1 over the
+        stack, and the host copies of everything the fold reads. Nothing
+        here waits for the card."""
         dev = block.device
+        forward = self._forward_of(block)
         probs, feats = [], []
         for slot in slots:
             x = _to_device(_pad_rows(parts[slot][1], bucket), dev)
-            p, f = self.forward(x)
+            p, f = forward(x)
             probs.append(p.float())
             feats.append(f.float())
         probs, feats = torch.stack(probs), torch.stack(feats)

@@ -1017,7 +1017,8 @@ class StreamPlacement:
 
 
 class MultiStreamRunner:
-    """Round-robins N per-stream ingestors through ONE shared cheap CNN.
+    """Round-robins N per-stream ingestors through one cheap CNN (a
+    replica of it on each mesh block's device in sharded mode).
 
     Two modes:
 
@@ -1032,9 +1033,9 @@ class MultiStreamRunner:
     * **Sharded** (``pipeline`` = a ``ShardedIngestPipeline``): each
       ingestor was constructed with ``pipeline=shared.handle(name)``;
       feeds enqueue per-stream batches and every ``step()`` runs ONE
-      stacked step over the head batch of each stream (see
-      ``make_sharded_runner``). The runner turns off the pipeline's
-      auto-pump so batches stack *across* streams.
+      stacked step over the head batch of each stream, on every block's
+      device at once (see ``make_sharded_runner``). The runner turns off
+      the pipeline's auto-pump so batches stack *across* streams.
 
     Either way, per-stream fold order is preserved, so each stream's
     index is byte-identical to a self-driven run of its own.
@@ -1131,9 +1132,15 @@ def make_sharded_runner(forward: Callable, mesh, stream_names,
                         **common_kwargs) -> MultiStreamRunner:
     """The whole sharded multi-stream stack: a ``StreamPlacement`` over
     ``mesh.size`` blocks, one shared ``ShardedIngestPipeline`` running the
-    tensor-level ``forward``, one ``StreamingIngestor`` per stream bound
-    to its slot handle on its block's device, and a ``MultiStreamRunner``
-    driving it.
+    tensor-level ``forward`` on block 0 and a replica of it on every other
+    block's device, one ``StreamingIngestor`` per stream bound to its slot
+    handle on its block's device (its pixel tracker and redundancy gate
+    launch ``pixel_match`` on that card), and a ``MultiStreamRunner``
+    driving it. One process drives every card of the mesh: ``mesh =
+    launch.mesh.make_ingest_mesh(n)`` over the first n cards, with
+    ``forward`` a module on ``mesh.devices[0]`` (``models.cnn.
+    make_forward``); a forward that is no module serves only a mesh on one
+    device.
 
     ``ingestor_kwargs`` maps stream name -> extra ``StreamingIngestor``
     kwargs (e.g. a per-stream ``catalog``); ``common_kwargs`` go to every

@@ -1,11 +1,14 @@
 """Wrappers for the Hopper kernels in ``csrc/``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, and launches its kernel on the current CUDA
-stream without synchronising. A CUDA tensor launches the kernel or raises;
-only a CPU tensor takes the plain version in ``hopper.ref``. ``LAUNCHES``
-counts kernel launches per wrapper, so a run can show that its path went
-through the kernels.
+outputs with ``torch.empty``, and launches its kernel on its tensors'
+card's current stream without synchronising, with that card made the
+current device for the launch (``_on``): the CUDA runtime launches on the
+current device, so a launch on a ``cuda:1`` tensor under a current device
+of 0 would meet another card's stream. A CUDA tensor launches the kernel
+or raises; only a CPU tensor takes the plain version in ``hopper.ref``.
+``LAUNCHES`` counts kernel launches per wrapper, so a run can show that
+its path went through the kernels.
 
 ``flash_attention`` and ``topk`` also take DTensors (a model run on a
 ``DeviceMesh``): the inputs are first redistributed to the placement
@@ -24,6 +27,7 @@ count. This propagates shapes; it is not a fallback.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -90,6 +94,17 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _on(device: torch.device):
+    """The launch's device guard: ``device`` is the current CUDA device
+    inside it, where the runtime launches a kernel, sets its shared-memory
+    attribute and memsets its scratch. It switches devices only where the
+    current one differs (a no-op on one card); a meta tensor's shape pass
+    has no device to switch to."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _raise_on(err: int, name: str):
     if err:
         raise RuntimeError(f"{name} launch failed with cudaError {err}")
@@ -104,25 +119,27 @@ def _assign_launch(feats: torch.Tensor, centroids: torch.Tensor, threshold,
     M = centroids.shape[1]
     if M == 0:
         raise ValueError(f"{name} needs at least one centroid")
-    dev = feats.device
-    min_d2 = torch.empty((S, B), dtype=torch.float32, device=dev)
-    arg = torch.empty((S, B), dtype=torch.int32, device=dev)
-    matched = torch.empty((S, B), dtype=torch.bool, device=dev)
     if S > 65535 and B:
         raise ValueError(f"{name}: S = {S} exceeds the kernel's 65535 "
                          f"blocks in z")
-    if S * B and dev.type == "cuda":
-        t2 = (np.float32(np.inf) if threshold is None
-              else np.float32(threshold) ** 2)          # squared in fp32
-        # the in-launch merge's per-row keys and per-row-tile counters
-        scratch = torch.empty((S * (8 * B + 4 * -(-B // CENTROID_ROWS)),),
-                              dtype=torch.uint8, device=dev)
-        err = build.load().centroid_assign_stacked_launch(
-            feats.data_ptr(), centroids.data_ptr(), min_d2.data_ptr(),
-            arg.data_ptr(), matched.data_ptr(), scratch.data_ptr(), S, B, M,
-            D, float(t2), _stream(dev))
-        _raise_on(err, name)
-        LAUNCHES["centroid_assign"] += 1
+    dev = feats.device
+    with _on(dev):
+        min_d2 = torch.empty((S, B), dtype=torch.float32, device=dev)
+        arg = torch.empty((S, B), dtype=torch.int32, device=dev)
+        matched = torch.empty((S, B), dtype=torch.bool, device=dev)
+        if S * B and dev.type == "cuda":
+            t2 = (np.float32(np.inf) if threshold is None
+                  else np.float32(threshold) ** 2)      # squared in fp32
+            # the in-launch merge's per-row keys and per-row-tile counters
+            scratch = torch.empty(
+                (S * (8 * B + 4 * -(-B // CENTROID_ROWS)),),
+                dtype=torch.uint8, device=dev)
+            err = build.load().centroid_assign_stacked_launch(
+                feats.data_ptr(), centroids.data_ptr(), min_d2.data_ptr(),
+                arg.data_ptr(), matched.data_ptr(), scratch.data_ptr(), S, B,
+                M, D, float(t2), _stream(dev))
+            _raise_on(err, name)
+            LAUNCHES["centroid_assign"] += 1
     if threshold is None:
         return min_d2, arg
     return min_d2, arg, matched
@@ -190,21 +207,22 @@ def _pixel_match_launch(a, b, lo, hi, threshold):
     _check_kernel_inputs("pixel_match", a, b)
     D = a.shape[1]
     dev = a.device
-    match = torch.empty((Na,), dtype=torch.int32, device=dev)
-    min_d = torch.empty((Na,), dtype=torch.float32, device=dev)
-    if dev.type == "meta":
-        return match, min_d
-    n_split = _n_split(dev, Na, Nb)
-    # the in-launch merge's per-row keys and counters (12 bytes a row)
-    scratch = (torch.empty((12 * Na,), dtype=torch.uint8, device=dev)
-               if n_split > 1 else None)
-    err = build.load().pixel_match_launch(
-        a.data_ptr(), b.data_ptr(),
-        lo.data_ptr() if lo is not None else None,
-        hi.data_ptr() if hi is not None else None,
-        match.data_ptr(), min_d.data_ptr(),
-        scratch.data_ptr() if scratch is not None else None,
-        Na, Nb, D, n_split, float(np.float32(threshold)), _stream(dev))
+    with _on(dev):
+        match = torch.empty((Na,), dtype=torch.int32, device=dev)
+        min_d = torch.empty((Na,), dtype=torch.float32, device=dev)
+        if dev.type == "meta":
+            return match, min_d
+        n_split = _n_split(dev, Na, Nb)
+        # the in-launch merge's per-row keys and counters (12 bytes a row)
+        scratch = (torch.empty((12 * Na,), dtype=torch.uint8, device=dev)
+                   if n_split > 1 else None)
+        err = build.load().pixel_match_launch(
+            a.data_ptr(), b.data_ptr(),
+            lo.data_ptr() if lo is not None else None,
+            hi.data_ptr() if hi is not None else None,
+            match.data_ptr(), min_d.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            Na, Nb, D, n_split, float(np.float32(threshold)), _stream(dev))
     _raise_on(err, "pixel_match")
     LAUNCHES["pixel_match"] += 1
     return match, min_d
@@ -288,10 +306,9 @@ def dequant_topk(q: torch.Tensor, scales: torch.Tensor, k: int, *,
     if q.device.type not in _DEVICES:
         raise ValueError(f"unsupported device {q.device}")
     dev = q.device
-    vals = torch.empty((M, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((M, k), dtype=torch.int32, device=dev)
     if M == 0:
-        return vals, idx
+        return (torch.empty((0, k), dtype=torch.float32, device=dev),
+                torch.empty((0, k), dtype=torch.int32, device=dev))
     if q.dtype not in (torch.uint8, torch.int8):
         raise ValueError(f"the dequant_topk kernel takes int8 or uint8, got "
                          f"{q.dtype}")
@@ -303,12 +320,15 @@ def dequant_topk(q: torch.Tensor, scales: torch.Tensor, k: int, *,
         raise ValueError(f"dequant_topk: C={C} exceeds the kernel's "
                          f"{DEQUANT_MAX_C} columns (a row's key bytes in "
                          f"shared memory)")
-    if dev.type == "meta":
-        return vals, idx
-    sg = float(np.float32(global_scale))
-    err = build.load().dequant_topk_launch(
-        q.data_ptr(), int(q.dtype == torch.int8), scales.data_ptr(), sg,
-        vals.data_ptr(), idx.data_ptr(), M, C, k, _stream(dev))
+    with _on(dev):
+        vals = torch.empty((M, k), dtype=torch.float32, device=dev)
+        idx = torch.empty((M, k), dtype=torch.int32, device=dev)
+        if dev.type == "meta":
+            return vals, idx
+        sg = float(np.float32(global_scale))
+        err = build.load().dequant_topk_launch(
+            q.data_ptr(), int(q.dtype == torch.int8), scales.data_ptr(), sg,
+            vals.data_ptr(), idx.data_ptr(), M, C, k, _stream(dev))
     _raise_on(err, "dequant_topk")
     LAUNCHES["dequant_topk"] += 1
     return vals, idx
@@ -339,20 +359,22 @@ def topk(x: torch.Tensor, k: int):
     if x.device.type not in _DEVICES:
         raise ValueError(f"unsupported device {x.device}")
     dev = x.device
-    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((B, k), dtype=torch.int32, device=dev)
     if B == 0:
-        return vals, idx
+        return (torch.empty((0, k), dtype=torch.float32, device=dev),
+                torch.empty((0, k), dtype=torch.int32, device=dev))
     if not x.is_contiguous():
         raise ValueError("topk: the kernel takes contiguous rows")
     if C > TOPK_MAX_C:
         raise ValueError(f"topk: C={C} exceeds the kernel's {TOPK_MAX_C} "
                          f"columns (a row's keys in 128 KB of shared "
                          f"memory)")
-    if dev.type == "meta":
-        return vals, idx
-    err = build.load().topk_launch(x.data_ptr(), vals.data_ptr(),
-                                   idx.data_ptr(), B, C, k, _stream(dev))
+    with _on(dev):
+        vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+        idx = torch.empty((B, k), dtype=torch.int32, device=dev)
+        if dev.type == "meta":
+            return vals, idx
+        err = build.load().topk_launch(x.data_ptr(), vals.data_ptr(),
+                                       idx.data_ptr(), B, C, k, _stream(dev))
     _raise_on(err, "topk")
     LAUNCHES["topk"] += 1
     return vals, idx
@@ -388,10 +410,10 @@ def motion_gate_frames(frames: torch.Tensor, bg: torch.Tensor, alpha,
     N, H, W = frames.shape[:3]
     ty, tx = H // tile, W // tile
     dev = frames.device
-    tiles = torch.empty((N, ty, tx), dtype=torch.float32, device=dev)
-    hot = torch.empty((N, ty, tx), dtype=torch.bool, device=dev)
     if N == 0:
-        return bg.clone(), tiles, hot
+        return (bg.clone(),
+                torch.empty((0, ty, tx), dtype=torch.float32, device=dev),
+                torch.empty((0, ty, tx), dtype=torch.bool, device=dev))
     for t in (frames, bg):
         if t.dtype != torch.float32:
             raise ValueError(f"motion_gate: the kernel takes float32, got "
@@ -404,13 +426,17 @@ def motion_gate_frames(frames: torch.Tensor, bg: torch.Tensor, alpha,
     if H * W * 3 >= 2 ** 31:
         raise ValueError(f"motion_gate: a frame of {H * W * 3} values "
                          f"exceeds the kernel's 32-bit offsets")
-    new_bg = torch.empty_like(bg)
-    if dev.type == "meta":
-        return new_bg, tiles, hot
-    err = build.load().motion_gate_launch(
-        frames.data_ptr(), bg.data_ptr(), new_bg.data_ptr(),
-        tiles.data_ptr(), hot.data_ptr(), N, H, W, tile,
-        float(np.float32(alpha)), float(np.float32(threshold)), _stream(dev))
+    with _on(dev):
+        tiles = torch.empty((N, ty, tx), dtype=torch.float32, device=dev)
+        hot = torch.empty((N, ty, tx), dtype=torch.bool, device=dev)
+        new_bg = torch.empty_like(bg)
+        if dev.type == "meta":
+            return new_bg, tiles, hot
+        err = build.load().motion_gate_launch(
+            frames.data_ptr(), bg.data_ptr(), new_bg.data_ptr(),
+            tiles.data_ptr(), hot.data_ptr(), N, H, W, tile,
+            float(np.float32(alpha)), float(np.float32(threshold)),
+            _stream(dev))
     _raise_on(err, "motion_gate")
     LAUNCHES["motion_gate"] += 1
     return new_bg, tiles, hot
@@ -484,19 +510,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                           for t in (q, k, v)):
         raise ValueError("flash_attention: bfloat16 q, k, v must start on "
                          "16 bytes")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    if q.numel() == 0:
+        return torch.empty_like(q)
     if B * H > 65535:
         raise ValueError(f"flash_attention: B*H = {B * H} exceeds the "
                          f"kernel's 65535 blocks in y")
-    if q.device.type == "meta":
-        return out
-    scale = float(np.float32(1.0 / dh ** 0.5))
-    err = build.load().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        dh, int(q.dtype == torch.bfloat16), int(causal), scale,
-        _stream(q.device))
+    with _on(q.device):
+        out = torch.empty_like(q)
+        if q.device.type == "meta":
+            return out
+        scale = float(np.float32(1.0 / dh ** 0.5))
+        err = build.load().flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            H, dh, int(q.dtype == torch.bfloat16), int(causal), scale,
+            _stream(q.device))
     _raise_on(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out

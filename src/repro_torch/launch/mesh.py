@@ -158,8 +158,12 @@ def make_fake_mesh(shape: Sequence[int], axes: Sequence[str]):
 @dataclass(frozen=True)
 class IngestMesh:
     """A 1-D ``("data",)`` mesh: ``devices[i]`` owns the i-th block of
-    stream slots. CPU meshes repeat ``torch.device("cpu")``: each entry is
-    a block of its own, the counterpart of XLA's forced host devices."""
+    stream slots, their stacked cluster tables and (past block 0) a
+    replica of the ingest forward; every kernel of the block launches on
+    that device. CPU meshes repeat ``torch.device("cpu")``: each entry is
+    a block of its own, the counterpart of XLA's forced host devices. An
+    entry may repeat a card too (``(cuda:0, cuda:0)``: two blocks, two
+    forwards, one card); ``make_ingest_mesh`` never builds one."""
     devices: Tuple[torch.device, ...]
 
     @property
@@ -174,9 +178,11 @@ class IngestMesh:
 def make_ingest_mesh(n_devices: int, device: str = "cuda") -> IngestMesh:
     """A 1-D ``("data",)`` mesh of ``n_devices`` blocks for sharded
     multi-stream ingest (DESIGN.md §13): the first ``n_devices`` CUDA
-    devices, or with ``device="cpu"`` that many CPU blocks. Too few cards
-    raise a ``ValueError`` that says what to do, up front, rather than a
-    device error deep inside the first step."""
+    devices, one block each, driven by one process (the forward on
+    ``cuda:0``, a replica on each other card), or with ``device="cpu"``
+    that many CPU blocks. Too few cards raise a ``ValueError`` that says
+    what to do, up front, rather than a device error deep inside the
+    first step."""
     if n_devices < 1:
         raise ValueError(f"n_devices must be >= 1, got {n_devices}")
     kind = torch.device(device).type

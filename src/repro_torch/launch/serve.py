@@ -52,11 +52,13 @@ candidates of all shards. Sealed shards are ranked on the card by the
       --fps 30 --archive /tmp/arch --stream-chunks 8
 
 With ``--mesh-devices N`` the streaming or archive ingest goes through a
-``ShardedIngestPipeline`` over ``launch.mesh.make_ingest_mesh(N)`` on
-``--device`` (the multi-stream stacked step, here with one stream's
-slot), running the model's tensor-level forward. On the card N is 1:
-ingest over more than one card is not built; ``--device cpu`` takes any
-N.
+``ShardedIngestPipeline`` over ``launch.mesh.make_ingest_mesh(N)`` (the
+multi-stream stacked step, here with one stream's slot): the first N
+cards, or N CPU blocks with ``--device cpu``. The model trained or
+loaded on ``--device`` (the first card) is block 0's tensor-level
+forward; the other blocks run replicas of it on their own cards, made
+when a block first runs a step (the one stream lives on block 0, so the
+others stay idle and hold no weights).
 """
 from __future__ import annotations
 
@@ -128,8 +130,9 @@ def _round_line(tag, service, by_tenant, wall, gt_delta):
 def _mk_ingestor(apply_fn, flops, cfg, args, **kw) -> StreamingIngestor:
     """The stream's ingestor: host-staged through ``apply_fn``, or with
     ``--mesh-devices N`` bound to its slot of a ``ShardedIngestPipeline``
-    over an N-block ingest mesh on ``--device``, running
-    ``apply_fn.forward`` (the tensor-level forward)."""
+    over an N-block ingest mesh, whose block 0 (``--device``) runs
+    ``apply_fn.forward`` (the tensor-level forward, a module) and every
+    other block a replica of it on its own device."""
     if args.mesh_devices <= 0:
         return StreamingIngestor(apply_fn, flops, cfg, device=args.device,
                                  **kw)
@@ -275,7 +278,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                     help="ingest through the sharded multi-stream pipeline "
                          "over an ingest mesh of N blocks on --device (0 = "
                          "host-staged ingest); needs --stream-chunks or "
-                         "--archive; one card, any N on the CPU")
+                         "--archive; N <= the visible cards, any N on the "
+                         "CPU")
     ap.add_argument("--index-out", default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)

@@ -30,7 +30,6 @@ from pathlib import Path
 from typing import Callable, Optional, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.common.config import CheapCNNConfig
 from repro_torch.common.device import DeviceLike
@@ -68,17 +67,6 @@ SPECIALIZED_FAMILY = {
                              feature_dim=128), 98.0),
 }
 DEFAULT_LS = 8
-
-
-def _resize(crops, res: int):
-    """Nearest-neighbour resize of (N, R, R, 3) crops to (N, res, res, 3);
-    numpy arrays and tensors alike."""
-    if crops.shape[1] == res:
-        return crops
-    idx = np.arange(res) * crops.shape[1] // res
-    if isinstance(crops, torch.Tensor):
-        idx = torch.from_numpy(idx).to(crops.device)
-    return crops[:, idx][:, :, idx]
 
 
 def cache_prefix(stream: str, model_id: str, duration_s: int, steps: int,
@@ -123,7 +111,8 @@ def get_model(stream_name: str, model_id: str, crops: np.ndarray,
 
     ``apply_fn(crops numpy) -> (probs, feats)`` numpy runs on ``device``
     and resizes the crops to the model's input first. It also carries
-    ``forward`` (the same on tensors, for an ``IngestPipeline``),
+    ``forward`` (the same on tensors, a replicable ``cnn.CheapForward``
+    for an ``IngestPipeline`` or a ``ShardedIngestPipeline``),
     ``input_res``, ``history`` (the training log; empty when loaded from
     the cache) and ``train_s`` (training wall time, None when loaded)."""
     specialized = model_id in SPECIALIZED_FAMILY
@@ -135,7 +124,7 @@ def get_model(stream_name: str, model_id: str, crops: np.ndarray,
     if os.path.exists(f"{prefix}.json") and os.path.exists(f"{prefix}.npz"):
         sm = load_model(prefix)
     else:
-        crops_r = _resize(crops, cfg.input_res)
+        crops_r = cnn.resize_nearest(crops, cfg.input_res)
         t0 = time.perf_counter()
         if specialized:
             sm = specialize(crops_r, labels, Ls=Ls, base_cfg=cfg,
@@ -149,12 +138,11 @@ def get_model(stream_name: str, model_id: str, crops: np.ndarray,
 
     model = sm.build(device)
     inner = cnn.make_apply(model)
-    fwd = cnn.make_forward(model)
 
     def apply_fn(batch):
-        return inner(_resize(batch, cfg.input_res))
+        return inner(cnn.resize_nearest(batch, cfg.input_res))
 
-    apply_fn.forward = lambda batch: fwd(_resize(batch, cfg.input_res))
+    apply_fn.forward = cnn.make_forward(model, cfg.input_res)
     apply_fn.input_res = cfg.input_res
     apply_fn.history = sm.history
     apply_fn.train_s = train_s

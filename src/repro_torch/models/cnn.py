@@ -206,19 +206,47 @@ def build(cfg: CheapCNNConfig, tree: dict,
     return params_from_jax(CheapCNN(cfg), tree).to(dev).eval()
 
 
-def make_forward(model: CheapCNN
-                 ) -> Callable[[torch.Tensor], Tuple[torch.Tensor,
-                                                     torch.Tensor]]:
+def resize_nearest(crops, res: int):
+    """Nearest-neighbour resize of (N, R, R, 3) crops to (N, res, res, 3);
+    numpy arrays and tensors alike."""
+    if crops.shape[1] == res:
+        return crops
+    idx = np.arange(res) * crops.shape[1] // res
+    if isinstance(crops, torch.Tensor):
+        idx = torch.from_numpy(idx).to(crops.device)
+    return crops[:, idx][:, :, idx]
+
+
+class CheapForward(nn.Module):
     """``forward(crops (B, R, R, 3) f32 tensor on the model's device) ->
     (softmax probs (B, n_classes), feats (B, feature_dim))``, both on that
     device and without a host copy: the tensor-level forward the fused
-    ingest pipeline runs (the JAX package's traceable ``cheap_fn``)."""
-    def forward(crops: torch.Tensor):
+    ingest pipelines run (the JAX package's traceable ``cheap_fn``). With
+    ``input_res`` the crops are first resized to it (``resize_nearest``).
+
+    A module, so that it can be replicated: ``copy.deepcopy(f).to(device)
+    .eval()`` is the same forward on another device, holding the same
+    weight bytes in storage of its own (``ShardedIngestPipeline`` places
+    one on each mesh block past the first)."""
+
+    def __init__(self, model: CheapCNN, input_res: Optional[int] = None):
+        super().__init__()
+        self.model = model
+        self.input_res = input_res
+
+    def forward(self, crops: torch.Tensor):
+        if self.input_res is not None:
+            crops = resize_nearest(crops, self.input_res)
         with torch.no_grad():
-            logits, feats = model(crops)
+            logits, feats = self.model(crops)
             return torch.softmax(logits, dim=-1), feats
 
-    return forward
+
+def make_forward(model: CheapCNN,
+                 input_res: Optional[int] = None) -> CheapForward:
+    """The tensor-level forward of ``model`` (``CheapForward``), resizing
+    its crops to ``input_res`` first when given."""
+    return CheapForward(model, input_res)
 
 
 def make_apply(model: CheapCNN, batch_pad: int = 64

@@ -109,9 +109,12 @@ _LIB = {
         "import torch\n"
         "from repro_torch.hopper import build, ref\n"
         "LAUNCHES = {'scale': 0}\n"
+        "def _on(dev):\n"
+        "    return torch.cuda.device(dev)\n"
         "def _launch(x, out):\n"
-        "    err = build.load().scale_launch(x.data_ptr(), out.data_ptr(),\n"
-        "                                    x.numel())\n"
+        "    with _on(x.device):\n"
+        "        err = build.load().scale_launch(x.data_ptr(),\n"
+        "                                        out.data_ptr(), x.numel())\n"
         "    LAUNCHES['scale'] += 1\n"
         "    return err\n"
         "def scale(x):\n"
@@ -291,6 +294,31 @@ def test_kernel_contract_findings(tmp_path, files, want):
     got = sorted((f["rule"], os.path.basename(f["path"]))
                  for f in doc["findings"])
     assert got == want, doc
+
+
+_GUARDED = "    with _on(x.device):\n        err = build.load()"
+
+
+@pytest.mark.parametrize("guard,want", [
+    # no guard at all, or a with of something else: the launch would run
+    # on the current device
+    (None, [("kernel-device", 8)]),
+    ("    with torch.no_grad():\n        err = build.load()",
+     [("kernel-device", 8)]),
+    # the guard's own call, in place of the module's helper
+    ("    with torch.cuda.device(x.device):\n        err = build.load()",
+     []),
+])
+def test_kernel_device_guard(tmp_path, guard, want):
+    """A launch in hopper/ops.py must lie inside a ``with`` of the
+    module's device guard (the fixture's ``_on``) or of
+    ``torch.cuda.device`` itself."""
+    files = _without("src/repro_torch/hopper/ops.py", _GUARDED,
+                     guard or "    if True:\n        err = build.load()")
+    doc = lint(tmp_path, files)
+    assert [(f["rule"], f["line"]) for f in doc["findings"]] == want, doc
+    assert all(os.path.basename(f["path"]) == "ops.py"
+               for f in doc["findings"])
 
 
 def test_an_unreached_entry_is_a_kernel_wrapper_finding(tmp_path):

@@ -240,6 +240,71 @@ def test_sharded_runner_on_the_card_equals_solo_pipelines(cuda):
             np.testing.assert_array_equal(gi, wi)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cards", [1, 2])
+def test_sharded_runner_replicas_on_two_blocks_equal_solo_pipelines(cuda,
+                                                                    n_cards):
+    """Two mesh blocks, block 1 on its own replica of the cheap1 forward:
+    both blocks on one card (``(cuda:0, cuda:0)``), or, on a machine with
+    two cards, on ``cuda:0`` and ``cuda:1`` (each launch made on its
+    tensors' card while ``cuda:0`` is current). Every stream saves its
+    solo pipeline's bytes, counters and sink (solo on ``cuda:0``), with
+    one ``centroid_assign`` and one ``topk`` launch per (step, active
+    block) pair."""
+    from repro_torch.common.config import CHEAP_CNNS
+    from repro_torch.core.ingest import IngestConfig
+    from repro_torch.core.pipeline import IngestPipeline
+    from repro_torch.core.streaming import (StreamingIngestor,
+                                            make_sharded_runner)
+    from repro_torch.data.video import get_stream
+    from repro_torch.launch.mesh import IngestMesh
+    from repro_torch.models import cnn
+
+    if torch.cuda.device_count() < n_cards:
+        pytest.skip(f"needs {n_cards} cards, {torch.cuda.device_count()} "
+                    f"visible")
+    names = ["jacksonh", "auburn_c", "cnn"]
+    streams = {nm: get_stream(nm, duration_s=20, fps=30).objects_array()[:2]
+               for nm in names}
+    mcfg = CHEAP_CNNS["cheap1"]
+    c0 = torch.device("cuda", 0)
+    fwd = cnn.make_forward(cnn.build(mcfg, cnn.init_params(mcfg, 0), c0))
+    cfg = IngestConfig(K=1000, threshold=0.4, batch_size=256,
+                       max_clusters=8)
+    mesh = IngestMesh((c0, torch.device("cuda", n_cards - 1)))
+    got = {}
+    runner = make_sharded_runner(
+        fwd, mesh, names, cfg=cfg,
+        topk_sink=lambda nm, o, v, i: got.setdefault(nm, []).append(
+            (o.copy(), v.copy(), i.copy())),
+        n_local_classes=1000)
+    before = dict(ops.LAUNCHES)
+    with torch.cuda.device(c0):
+        runner.feed(streams)
+        out = runner.finish()
+    st = runner.pipeline.stats
+    assert st.n_block_steps > st.n_steps
+    for k in ("centroid_assign", "topk"):
+        assert ops.LAUNCHES[k] - before[k] == st.n_block_steps, k
+    rep = runner.pipeline.forwards[1]
+    assert rep is not fwd and next(rep.parameters()).device == mesh.devices[1]
+    for nm, (crops, frames) in streams.items():
+        sink = []
+        ing = StreamingIngestor(
+            None, 0.0, cfg, n_local_classes=1000, device=c0,
+            pipeline=IngestPipeline(fwd, cfg, device=c0,
+                                    topk_sink=lambda o, v, i: sink.append(
+                                        (o.copy(), v.copy(), i.copy()))))
+        ing.feed(crops, frames)
+        index, stats = ing.finish()
+        assert out[nm][0].save_bytes() == index.save_bytes(), nm
+        assert vars(out[nm][1]) | {"wall_s": 0} == \
+            vars(stats) | {"wall_s": 0}, nm
+        for g, w in zip(got[nm], sink, strict=True):
+            for a, b in zip(g, w, strict=True):
+                np.testing.assert_array_equal(a, b)
+
+
 def _ranges_pair(a, b, lo, hi, thr):
     before = ops.LAUNCHES["pixel_match"]
     m, d = ops.pixel_match_ranges(a, b, lo, hi, thr)

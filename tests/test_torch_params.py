@@ -15,6 +15,7 @@ from repro.data import get_stream as jax_get_stream
 from repro_torch.core import params
 from repro_torch.core.index import ClassMap
 from repro_torch.launch import zoo
+from repro_torch.models import cnn
 
 
 def _fields(e):
@@ -132,16 +133,17 @@ def test_gt_flops_and_families_match_the_jax_zoo():
 
 def test_zoo_generic_model_resizes_and_caches(tmp_path):
     """``get_model`` on a generic member: the crops are resized to its
-    16 px input as the JAX zoo resizes them, the tensor ``forward`` equals
-    the numpy ``apply``, and a second call loads the cached model."""
+    16 px input as the JAX zoo resizes them, the tensor ``forward`` (a
+    replicable module that resizes inside) equals the numpy ``apply``,
+    and a second call loads the cached model."""
     from benchmarks.common import _resize as jax_resize
     r = np.random.default_rng(0)
     crops = r.random((40, 32, 32, 3), dtype=np.float32)
     labels = r.integers(0, 1000, 40)
-    np.testing.assert_array_equal(zoo._resize(crops, 16),
+    np.testing.assert_array_equal(cnn.resize_nearest(crops, 16),
                                   jax_resize(crops, 16))
     np.testing.assert_array_equal(
-        zoo._resize(torch.from_numpy(crops), 16).numpy(),
+        cnn.resize_nearest(torch.from_numpy(crops), 16).numpy(),
         jax_resize(crops, 16))
     apply_fn, flops, cmap = zoo.get_model("s", "cheap3", crops, labels, 4,
                                           steps=2, device="cpu",
@@ -150,6 +152,7 @@ def test_zoo_generic_model_resizes_and_caches(tmp_path):
     assert apply_fn.input_res == 16 and len(apply_fn.history) == 2
     probs, feats = apply_fn(crops)
     assert probs.shape == (40, 1000) and feats.shape == (40, 128)
+    assert isinstance(apply_fn.forward, cnn.CheapForward)
     tp, tf = apply_fn.forward(torch.from_numpy(crops))
     np.testing.assert_allclose(tp.numpy(), probs, atol=1e-6)
     again, _, _ = zoo.get_model("s", "cheap3", crops, labels, 4, steps=2,

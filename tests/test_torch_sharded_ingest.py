@@ -13,7 +13,9 @@ numpy ``(probs, feats)`` rows by the global row number planted in the
 crop's first pixel, so both see bit-equal CNN outputs (the technique of
 ``tests/test_torch_pipeline.py``). The port's CPU meshes of 2 and 4
 blocks (the counterpart of XLA's forced host devices) are held against
-the port's solo ``IngestPipeline``. All comparisons are exact;
+the port's solo ``IngestPipeline``, with the lookup forward shared by the
+blocks and with a real cheap CNN (the JAX package's initial weights)
+replicated onto every block past the first. All comparisons are exact;
 everything runs on the CPU.
 """
 import ast
@@ -21,6 +23,7 @@ import importlib
 import inspect
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,7 +38,10 @@ from repro.core.archive import ShardCatalog as JShardCatalog
 from repro.core.streaming import MultiStreamRunner as JMultiStreamRunner
 from repro.core.streaming import StreamingIngestor as JStreamingIngestor
 from repro.core.streaming import make_sharded_runner as j_make_sharded_runner
+from repro.common.config import CheapCNNConfig as JCheapCNNConfig
 from repro.launch.mesh import make_ingest_mesh as j_make_ingest_mesh
+from repro.models import cnn as jcnn
+from repro_torch.common.config import CheapCNNConfig
 from repro_torch.core.archive import ShardCatalog
 from repro_torch.core.index import saved_file_bytes
 from repro_torch.core.ingest import IngestConfig
@@ -46,6 +52,7 @@ from repro_torch.core.streaming import (MultiStreamRunner, StreamPlacement,
                                         make_sharded_runner)
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.mesh import IngestMesh, make_ingest_mesh
+from repro_torch.models import cnn
 
 # ``repro.core`` re-exports the function ``ingest`` under the module's name
 J = importlib.import_module("repro.core.ingest")
@@ -154,7 +161,7 @@ def _sunk(store):
             for nm, batches in store.items()}
 
 
-def _solo_runs(streams, cfg, chunkings):
+def _solo_runs(streams, cfg, chunkings, forward=_forward):
     """Each stream through its own port ``IngestPipeline`` over the same
     chunk splits, with a sink: the byte-identity baseline. Returns the
     ``finish()`` results and the sinks' store."""
@@ -163,7 +170,7 @@ def _solo_runs(streams, cfg, chunkings):
         sink = _sink(store)
         ing = StreamingIngestor(
             None, 1e9, cfg, device="cpu",
-            pipeline=IngestPipeline(_forward, device="cpu",
+            pipeline=IngestPipeline(forward, device="cpu",
                                     topk_sink=lambda *a, nm=nm: sink(nm, *a)))
         o = 0
         for k in chunkings[nm]:
@@ -252,6 +259,87 @@ def test_cpu_blocks_match_solo_pipelines(n_blocks, n_streams, data):
         block = runner.pipeline.handle(nm).block
         assert block.index == runner.placement.device_of(nm)
         assert runner.ingestors[nm].device == block.device
+
+
+# ---------------------------------------------------------------------------
+# a real cheap CNN: the caller's forward on block 0, a replica on each other
+# ---------------------------------------------------------------------------
+
+# a cheap CNN at the test streams' 6 px crops, the lookup's widths
+TINY_CNN = dict(name="tiny", input_res=6, n_blocks=2, width=8,
+                n_classes=N_CLASSES, feature_dim=FEAT_DIM)
+
+
+@pytest.fixture(scope="module")
+def cheap_forward():
+    """``cnn.make_forward`` of a CheapCNN holding the JAX package's
+    initial weights (``cnn.init``, seed 0), carried by
+    ``params_from_jax``."""
+    tree = jax.tree.map(np.asarray, jax.jit(jcnn.init, static_argnums=1)(
+        jax.random.PRNGKey(0), JCheapCNNConfig(**TINY_CNN)))
+    return cnn.make_forward(cnn.build(CheapCNNConfig(**TINY_CNN), tree,
+                                      device="cpu"))
+
+
+def _storages(module):
+    return {p.untyped_storage().data_ptr() for p in module.parameters()}
+
+
+@pytest.mark.parametrize("n_blocks,n_streams", [(2, 3), (4, 5), (4, 2)])
+def test_cnn_replicas_on_cpu_blocks_match_solo_pipelines(
+        cheap_forward, n_blocks, n_streams):
+    """Streams over 2 or 4 CPU blocks with a real cheap CNN: block 0 runs
+    the caller's forward, every other block with a stream its own
+    replica (a distinct module sharing no storage with block 0's, the
+    same weights), an idle block none; every stream saves its solo
+    ``IngestPipeline``'s bytes, counters and sink. The CNN's features lie
+    ~0.25 apart, so the threshold is 0.1 for its tables to evict."""
+    cfg = IngestConfig(batch_size=32, **dict(EVICTING, threshold=0.1))
+    names = [f"cam{i}" for i in range(n_streams)]
+    streams = {nm: _stream(41 + i, 150 + 30 * i)
+               for i, nm in enumerate(names)}
+    chunkings = {nm: [50] * -(-len(c) // 50)
+                 for nm, (c, _) in streams.items()}
+    got_sink = {}
+    runner = make_sharded_runner(cheap_forward, _cpu_mesh(n_blocks), names,
+                                 cfg=cfg, topk_sink=_sink(got_sink),
+                                 cheap_flops_per_image=1e9)
+    got = _feed(runner, streams, chunkings)
+    want, want_sink = _solo_runs(streams, cfg, chunkings, cheap_forward)
+    _assert_same(got, want, got_sink, want_sink)
+    assert sum(c.n_evictions for _, c in got.values()) > 0
+    forwards = runner.pipeline.forwards
+    assert forwards[0] is cheap_forward
+    active = set(runner.placement.assignment().values())
+    for i, f in enumerate(forwards[1:], 1):
+        if i not in active:
+            assert f is None, i           # an idle block holds no weights
+            continue
+        assert isinstance(f, cnn.CheapForward) and not f.training
+        assert all(f is not g for g in forwards[:i])
+        assert not _storages(f) & _storages(cheap_forward)
+        for a, b in zip(f.parameters(), cheap_forward.parameters(),
+                        strict=True):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("input_res", [None, 4])
+def test_replica_outputs_equal_the_original(cheap_forward, input_res):
+    """The replica protocol alone: a block's replica (with the zoo's
+    resize to the model's input inside the forward, or without) gives
+    the original's outputs bit for bit."""
+    fwd = (cheap_forward if input_res is None
+           else cnn.make_forward(cheap_forward.model, input_res))
+    pipe = ShardedIngestPipeline(fwd, _cpu_mesh(2), ["a", "b"])
+    rep = pipe._forward_of(pipe.blocks[1])
+    assert rep is not fwd and pipe._forward_of(pipe.blocks[1]) is rep
+    assert rep.input_res == input_res
+    crops = torch.from_numpy(_stream(5, 40)[0])
+    for a, b in zip(rep(crops), fwd(crops), strict=True):
+        assert torch.equal(a, b)
+    # a forward that is no module is shared where the mesh is one device
+    shared = ShardedIngestPipeline(_forward, _cpu_mesh(2), ["a", "b"])
+    assert shared._forward_of(shared.blocks[1]) is _forward
 
 
 def test_stacked_step_dispatch_budget():
@@ -448,9 +536,12 @@ def test_sharded_pipeline_rejects_mismatched_cfg():
     (["a", "b", "c"], IngestMesh((torch.device("cpu"),) * 2), ValueError,
      "multiple"),
     (["a", "a"], None, ValueError, "duplicate"),
+    # a forward that is no module cannot be replicated onto a second device
     (["a", "b"], IngestMesh((torch.device("cuda", 0),
                              torch.device("cuda", 1))),
-     NotImplementedError, "more than one card"),
+     ValueError, "cannot be\\s+replicated"),
+    (["a", "b"], IngestMesh((torch.device("cpu"), torch.device("meta"))),
+     ValueError, "cannot be\\s+replicated"),
 ])
 def test_sharded_pipeline_slot_layout_validation(slots, mesh, err, match):
     with pytest.raises(err, match=match):
@@ -557,3 +648,29 @@ def test_serve_mesh_devices_matches_jax_serve(tmp_path, monkeypatch, capsys):
     assert len(choice) == 1 and choice == lines(jax_out, "[serve] policy=")
     answers = lines(port_out, "  query class=")
     assert answers and answers == lines(jax_out, "  query class=")
+
+
+def test_serve_mesh_devices_2_answers_as_1(capsys):
+    """The override path (seeded cheap1, K=1000, T=0.4) over a 2-block CPU
+    ingest mesh prints the answers and the ingest line of a 1-block one:
+    the one stream lives on block 0, and block 1 stays idle."""
+    from repro_torch.launch import serve
+
+    argv = ["--stream", "jacksonh", "--duration", "10", "--fps", "30",
+            "--device", "cpu", "--stream-chunks", "4", "--rounds", "1",
+            "--K", "1000", "--T", "0.4", "--model", "cheap1", "--seed", "0"]
+    outs = []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)          # beside the other test workers
+    try:
+        for n in ("1", "2"):
+            report = serve.main(argv + ["--mesh-devices", n])
+            assert report["objects"] > 0 and report["clusters"] > 1
+            out = capsys.readouterr().out.splitlines()
+            # the answers, and the ingest line up to its wall time
+            outs.append([ln for ln in out if ln.startswith("  query class=")]
+                        + [ln.split(" in ")[0] for ln in out
+                           if ln.startswith("[serve] ingest:")])
+    finally:
+        torch.set_num_threads(threads)
+    assert len(outs[0]) > 1 and outs[1] == outs[0]
